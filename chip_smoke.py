@@ -9,9 +9,14 @@ Phases, one progress line each (flush=True):
     nvcc's version;
  2. build: the GDN kernel (nvcc, sm_90a) and the host rANS library (g++),
     started together;
- 3. kernels: fused GDN and inverse GDN against ``gdn_plain`` at the main
-    path's row counts (98,304 / 24,576 / 6,144 for a 768x512 image, and a
-    ragged 21), C = 192: max relative error <= 1e-5, CUDA-event times;
+ 3. kernels: fused GDN and inverse GDN against ``gdn_plain``, max relative
+    error <= 1e-5: at the main path's row counts (98,304 / 24,576 / 6,144
+    for a 768x512 image, and a ragged 21), C = 192, with CUDA-event times of
+    the kernel, of ``gdn_plain`` and of the product alone
+    (``torch.matmul(x*x, gamma)``, cuBLAS SGEMM) beside the tensor-core and
+    CUDA-core bounds; at ragged R 1 / 31 / 33 / 98,309; at every C the
+    kernel takes (R = 333); and 21 rows alone against the same rows at
+    offsets 0, 5 and 37 inside 98,304, bitwise;
  4. main path: the full-width ``pic`` model (N=192, M=640, division
     (320, 640), dim_chunk 32, bf16 compute, random weights from a seed) on a
     seeded synthetic 768x512 image (``epic_tpu_torch/tools/workload.py``):
@@ -43,10 +48,13 @@ import numpy as np
 import torch
 
 # Published dense peaks (NVIDIA data sheets), by SKU: float32 on CUDA cores
-# in TFLOP/s, memory in TB/s.
-_PEAKS = {"SXM": (67.0, 3.35), "PCIe": (51.0, 2.0), "NVL": (60.0, 3.9)}
+# and TF32 on tensor cores in TFLOP/s, memory in TB/s.
+_PEAKS = {"SXM": (67.0, 495.0, 3.35), "PCIe": (51.0, 378.0, 2.0),
+          "NVL": (60.0, 417.5, 3.9)}
 GDN_ROWS = (98_304, 24_576, 6_144, 21)
+GDN_RAGGED_ROWS = (1, 31, 33, 98_309)
 GDN_C = 192
+REL_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -132,51 +140,99 @@ def time_cuda(fn, reps: int = 20, inner: int = 10) -> float:
     return float(np.median(samples))
 
 
-def gdn_bound_ms(rows: int, c: int, flops_peak: float, bw: float):
-    """(bound ms, what binds): 2RC^2 + 4RC float32 operations (square, FMA
-    sum, + beta, rsqrt/sqrt, * x) over the float32 peak, against x, gamma,
-    beta read once and y written once over the memory rate."""
-    ops = 2.0 * rows * c * c + 4.0 * rows * c
-    nbytes = 4.0 * (2 * rows * c + c * c + c)
-    t_ops, t_bytes = ops / (flops_peak * 1e12), nbytes / (bw * 1e12)
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+def gdn_bounds_ms(rows: int, c: int, peak: tuple):
+    """Least times for GDN over [rows, c] on this card, in ms: (tensor-core
+    bound, what binds it, CUDA-core bound). The bytes are x, gamma, beta read
+    once and y written once over the memory rate. The kernel's float32
+    accuracy on tensor cores takes three TF32 products (3 * 2RC^2 operations
+    at the TF32 peak); the CUDA-core bound, the design of the earlier kernel,
+    counts 2RC^2 + 4RC float32 operations at the float32 peak."""
+    f32, tf32, bw = peak
+    t_bytes = 4.0 * (2 * rows * c + c * c + c) / (bw * 1e12)
+    t_tc = 3 * 2.0 * rows * c * c / (tf32 * 1e12)
+    t_cc = (2.0 * rows * c * c + 4.0 * rows * c) / (f32 * 1e12)
+    by = "operations" if t_tc >= t_bytes else "bytes"
+    return max(t_tc, t_bytes) * 1e3, by, max(t_cc, t_bytes) * 1e3
 
 
-def phase_kernels(smi: str):
-    from epic_tpu_torch.ops.gdn_kernel import gdn, gdn_plain
-
-    dev = torch.device("cuda")
-    flops_peak, bw = peaks(smi)
-    rng = np.random.default_rng(0)
-    c = GDN_C
+def _gdn_data(rows: int, c: int, rng, dev):
+    x = torch.as_tensor(rng.normal(0, 1, (rows, c)).astype(np.float32),
+                        device=dev)
     gamma = torch.as_tensor((0.1 * np.eye(c) + 0.01 * rng.random((c, c)))
                             .astype(np.float32), device=dev)
     beta = torch.as_tensor((1.0 + 0.1 * rng.random(c)).astype(np.float32),
                            device=dev)
+    return x, gamma, beta
+
+
+def _check_gdn(label: str, x, gamma, beta, inverse: bool):
+    """The kernel against gdn_plain on the same inputs: (max abs error, max
+    relative error); raises above REL_TOL."""
+    from epic_tpu_torch.ops.gdn_kernel import gdn, gdn_plain
+
+    got = gdn(x, gamma, beta, inverse)
+    want = gdn_plain(x, gamma, beta, inverse)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    rel = float((err / want.abs().clamp_min(1e-30)).max())
+    if not math.isfinite(rel) or rel > REL_TOL:
+        raise AssertionError(f"{label}: max relative error {rel:.3e} > "
+                             f"{REL_TOL}")
+    return float(err.max()), rel
+
+
+def phase_kernels(smi: str):
+    """GDN / IGDN against gdn_plain (max relative error <= 1e-5): at the main
+    path's row counts (timed: kernel, plain, the product alone), at ragged
+    row counts, at every width the kernel takes; and rows whose bits do not
+    depend on where they sit in the launch."""
+    from epic_tpu_torch.ops.gdn_kernel import MAX_CHANNELS, gdn, gdn_plain
+
+    dev = torch.device("cuda")
+    peak = peaks(smi)
+    rng = np.random.default_rng(0)
+    c = GDN_C
+    _, gamma, beta = _gdn_data(1, c, rng, dev)
     rows_out = {}
     for inverse, name in ((False, "gdn"), (True, "igdn")):
         per_shape = []
         for rows in GDN_ROWS:
             x = torch.as_tensor(rng.normal(0, 1, (rows, c)).astype(np.float32),
                                 device=dev)
-            got = gdn(x, gamma, beta, inverse)
-            want = gdn_plain(x, gamma, beta, inverse)
-            torch.cuda.synchronize()
-            err = (got - want).abs()
-            rel = float((err / want.abs().clamp_min(1e-30)).max())
-            if not math.isfinite(rel) or rel > 1e-5:
-                raise AssertionError(f"{name} R={rows}: max relative error "
-                                     f"{rel:.3e} > 1e-5")
+            abs_err, rel = _check_gdn(f"{name} R={rows}", x, gamma, beta,
+                                      inverse)
             ms = time_cuda(lambda: gdn(x, gamma, beta, inverse))
             plain_ms = time_cuda(lambda: gdn_plain(x, gamma, beta, inverse))
-            bound, by = gdn_bound_ms(rows, c, flops_peak, bw)
-            per_shape.append(dict(rows=rows, max_abs_err=float(err.max()),
+            product_ms = time_cuda(lambda: torch.matmul(x * x, gamma))
+            bound, by, cc_bound = gdn_bounds_ms(rows, c, peak)
+            per_shape.append(dict(rows=rows, max_abs_err=abs_err,
                                   max_rel_err=rel, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=bound, bound_by=by))
+                                  product_ms=product_ms, bound_ms=bound,
+                                  bound_by=by, cuda_core_bound_ms=cc_bound))
             log(f"[3 kernels] {name} R={rows} C={c}: max rel err {rel:.2e}, "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                f"{bound:.4f} ms ({by}) [{smi}]")
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, product alone "
+                f"{product_ms:.4f} ms, bound {bound:.4f} ms ({by}), CUDA-core "
+                f"bound {cc_bound:.4f} ms [{smi}]")
+        worst = 0.0
+        for rows in GDN_RAGGED_ROWS:
+            x, g, b = _gdn_data(rows, c, rng, dev)
+            worst = max(worst, _check_gdn(f"{name} R={rows}", x, g, b,
+                                          inverse)[1])
+        for width in range(1, MAX_CHANNELS + 1):
+            x, g, b = _gdn_data(333, width, rng, dev)
+            worst = max(worst, _check_gdn(f"{name} C={width}", x, g, b,
+                                          inverse)[1])
+        x, g, b = _gdn_data(98_304, c, rng, dev)
+        alone = gdn(x[:21].clone(), g, b, inverse)
+        for off in (0, 5, 37):
+            big = x.clone()
+            big[off:off + 21] = x[:21]
+            if not torch.equal(gdn(big, g, b, inverse)[off:off + 21], alone):
+                raise AssertionError(f"{name}: rows at offset {off} of "
+                                     "98,304 differ from the same rows alone")
+        log(f"[3 kernels] {name} ragged R {GDN_RAGGED_ROWS} and C = 1.."
+            f"{MAX_CHANNELS} at R=333: max rel err {worst:.2e}; 21 rows "
+            "alone and at offsets 0/5/37 of 98,304 bitwise equal")
         rows_out[name] = per_shape
     return rows_out
 
@@ -300,12 +356,14 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "epic_tpu_torch/csrc/gdn.cu",
-            "replaces": "epic_tpu/ops/pallas_gdn.py:38",
+            "replaces": "epic_tpu/ops/pallas_gdn.py:37",
             "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in per_shape[name]),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-            "library_ms": None})
+            "library_ms": None,
+            "cuda_core_bound_ms": top["cuda_core_bound_ms"],
+            "product_ms": top["product_ms"]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

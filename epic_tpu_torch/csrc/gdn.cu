@@ -1,5 +1,6 @@
-// gdn.cu — fused GDN / inverse GDN for Hopper (sm_90a), with a plain C
-// interface bound from Python with ctypes (epic_tpu_torch/ops/gdn_kernel.py).
+// gdn.cu — fused GDN / inverse GDN for Hopper (sm_90a) on tensor cores,
+// with a plain C interface bound from Python with ctypes
+// (epic_tpu_torch/ops/gdn_kernel.py).
 //
 // Replaces the JAX package's Pallas TPU kernel: epic_tpu/ops/pallas_gdn.py
 // (_gdn_kernel, launched by _gdn_pallas_2d). Over x flattened to [R, C]
@@ -8,116 +9,323 @@
 //     y[r, i]    = x[r, i] * rsqrt(norm[r, i])      GDN
 //     y[r, i]    = x[r, i] * sqrt(norm[r, i])       inverse GDN
 //
-// Bound on the H100: 2*R*C*C float32 operations against 8*R*C + 4*C*C + 4*C
-// bytes. At C = 192 that is 48 operations per byte, above the 20 at which the
-// card's float32 CUDA-core rate (67 TFLOP/s) and its memory (3.35 TB/s)
-// balance, so the kernel is bound by operations while it uses CUDA cores.
+// What bounds it on the H100. The product is 2RC^2 operations against
+// 8RC + 4C^2 + 4C bytes: at C = 192, 48 operations per byte. On the float32
+// CUDA cores (67 TFLOP/s) that is bound by operations (0.109 ms at R =
+// 98,304). On the tensor cores, float32 accuracy takes three TF32 products
+// (3xTF32, below): 3 * 2RC^2 at 495 TFLOP/s is 0.044 ms against 0.045 ms for
+// the bytes at 3.35 TB/s, so the kernel is bound by bytes, with the
+// tensor-core work just under it.
 //
-// Design (right and simple first; tensor cores are later work):
-//  - one block of 256 threads per tile of 64 rows; the ragged last tile is
-//    masked, not padded;
-//  - the tile's x^2 is staged in shared memory once; gamma streams through
-//    shared memory in chunks of 32 of its rows (dynamic shared memory,
-//    (64 + 32) * C * 4 bytes: 72 KB at C = 192);
-//  - each warp owns 8 rows of the tile and each lane the columns
-//    lane + 32 * n, so a thread keeps an 8 x 8 block of sums in registers:
-//    the x^2 operand is a shared-memory broadcast and the gamma operand is
-//    read by 32 lanes at 32 consecutive addresses;
-//  - every sum runs over j = 0 .. C-1 in increasing order with fmaf, then adds
-//    beta: no atomics, and the order does not depend on R, so the encoder
-//    and the decoder, which see different batch shapes of the same rows, get
-//    the same bits;
-//  - rsqrt / sqrt and the multiply by x happen in registers; x is read again
-//    from global memory (an L2 hit) for that epilogue.
+// Design:
+//  - mma.sync.m16n8k8 TF32 with 3xTF32 compensation: each operand v splits
+//    into hi = tf32(v) and lo = tf32(v - hi), rounded to nearest with ties
+//    away from zero (cvt.rna's rounding, done with two integer operations),
+//    and every k-step accumulates a_lo*b_hi, then a_hi*b_lo, then a_hi*b_hi
+//    into one float32 accumulator. All terms are >= 0 (x^2, and gamma after
+//    its reparametrisation), so the sum does not cancel and keeps float32
+//    accuracy (plain TF32 would miss 1e-5 relative).
+//  - A persistent grid of min(tiles, SMs) blocks. Each block reads gamma
+//    from global memory once, with 16-byte cp.async all in flight together
+//    with its first x tile, keeps it in shared memory (row stride 200
+//    floats, so the B-fragment loads hit 32 distinct banks), then walks
+//    over 32-row tiles of x. The CUDA-core kernel it replaces re-read all
+//    of gamma from L2 for every 64 rows (226 MB per launch at R = 98,304).
+//  - x tiles are double-buffered with cp.async (16-byte copies when C is a
+//    multiple of 4, else 4-byte ones): the next tile arrives while this
+//    one's MMAs run. Rows past R are zero-filled, not read; the padded row
+//    stride (C rounded up to 8, + 4) keeps the A-fragment loads free of
+//    bank conflicts.
+//  - 8 warps; warp w owns rows 16 * (w % 2) .. +15 of the tile and the
+//    n-fragments (8 columns each) f = w / 2 + 4j, j < 6: 24 accumulators.
+//    The epilogue takes sqrt(norm) as norm * rsqrt(norm).
+//    x^2 is formed and split in registers; it never goes to memory. K is
+//    zero-padded to a multiple of 8 and gamma's N to 192, so any C in
+//    1..192 runs the same unguarded k-loop.
+//  - The epilogue adds beta, applies rsqrt or sqrt and multiplies by x read
+//    from the tile in shared memory (not from global memory again), then
+//    stores y, two columns at a time when C is even; the ragged last tile
+//    is masked.
+//  - Determinism: every output sums k in the same fixed order with the same
+//    three-MMA sequence; no split-K, no atomics, nothing that depends on R.
+//    A row's bits do not depend on R or on its tile, so the encoder and the
+//    decoder, which see different batch shapes of the same rows, agree.
+//  - Host cost: the shared-memory limit is raised and the SM count read
+//    once per device (and variant), not on every launch.
+//
+// Shared memory at C = 192: gamma 192 * 200 * 4 = 153,600 B plus two x
+// tiles of 32 * 196 * 4 = 25,088 B: 203,776 B of the 232,448 a block may use.
 
 #include <cuda_runtime.h>
+#include <cstdint>
 
 namespace {
 
-constexpr int kTileRows = 64;
-constexpr int kChunk = 32;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerWarp = kTileRows / kWarps;   // 8
-constexpr int kMaxChannels = 256;
-constexpr int kColsPerLane = kMaxChannels / 32;    // 8
+constexpr int kTileRows = 32;
+constexpr int kWarpsN = 4;                      // warps across N (x 2 in M)
+constexpr int kThreads = 64 * kWarpsN;
+constexpr int kMaxChannels = 192;
+constexpr int kGammaStride = kMaxChannels + 8;  // floats per gamma row
+constexpr int kFragsPerWarp = kMaxChannels / 8 / kWarpsN;  // 6
 
-template <bool kInverse>
-__global__ void __launch_bounds__(kThreads)
-gdn_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
-           const float* __restrict__ beta, float* __restrict__ y,
-           long long rows, int c) {
-    extern __shared__ float smem[];
-    float* x2 = smem;                    // [kTileRows][c]
-    float* g = smem + kTileRows * c;     // [kChunk][c]
+__host__ __device__ constexpr int round8(int c) { return (c + 7) & ~7; }
+__host__ __device__ constexpr int tile_stride(int c) { return round8(c) + 4; }
 
-    const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    const long long r0 = static_cast<long long>(blockIdx.x) * kTileRows;
-    const long long left = rows - r0;
-    const int nrows = left < kTileRows ? static_cast<int>(left) : kTileRows;
-    const float* xt = x + r0 * c;
+__host__ __device__ constexpr int smem_bytes(int c) {
+    return (round8(c) * kGammaStride + 2 * kTileRows * tile_stride(c)) *
+           static_cast<int>(sizeof(float));
+}
 
-    for (int idx = tid; idx < kTileRows * c; idx += kThreads) {
-        const float v = (idx / c < nrows) ? xt[idx] : 0.0f;
-        x2[idx] = v * v;
-    }
+// The TF32 value nearest to v, ties away from zero: what cvt.rna.tf32.f32
+// gives for a finite v, in two integer operations (half a TF32 unit added
+// to the magnitude's bits, then the 13 low bits cleared).
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+    return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
 
-    float acc[kRowsPerWarp][kColsPerLane];
-#pragma unroll
-    for (int m = 0; m < kRowsPerWarp; ++m)
-#pragma unroll
-        for (int n = 0; n < kColsPerLane; ++n) acc[m][n] = 0.0f;
+// v = hi + lo, both TF32.
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+    hi = to_tf32(v);
+    lo = to_tf32(v - __uint_as_float(hi));
+}
 
-    const float* x2w = x2 + warp * kRowsPerWarp * c;
-    for (int k0 = 0; k0 < c; k0 += kChunk) {
-        const int kc = (c - k0) < kChunk ? (c - k0) : kChunk;
-        __syncthreads();  // x2 is stored; the previous chunk is consumed
-        for (int idx = tid; idx < kc * c; idx += kThreads)
-            g[idx] = gamma[static_cast<long long>(k0) * c + idx];
-        __syncthreads();
-        for (int kk = 0; kk < kc; ++kk) {
-            float a[kRowsPerWarp];
-#pragma unroll
-            for (int m = 0; m < kRowsPerWarp; ++m) a[m] = x2w[m * c + k0 + kk];
-#pragma unroll
-            for (int n = 0; n < kColsPerLane; ++n) {
-                const int col = lane + 32 * n;
-                const float gv = col < c ? g[kk * c + col] : 0.0f;
-#pragma unroll
-                for (int m = 0; m < kRowsPerWarp; ++m)
-                    acc[m][n] = fmaf(a[m], gv, acc[m][n]);
-            }
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+    asm(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+                 :: "r"(s), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+                 :: "r"(s), "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;");
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
+// Start copying tile `t` of x ([rows, c]) into `buf` (stride tile_stride(c)).
+// Columns c .. round8(c) - 1 are never written here: they hold zeros.
+__device__ __forceinline__ void load_tile(float* buf, const float* x,
+                                          long long rows, int c, long long t,
+                                          bool vec4) {
+    const int stride = tile_stride(c);
+    const long long r0 = t * kTileRows;
+    if (vec4) {
+        const int per_row = c >> 2;
+        for (int i = threadIdx.x; i < kTileRows * per_row; i += kThreads) {
+            const int r = i / per_row, q = i - r * per_row;
+            const bool valid = r0 + r < rows;
+            const float* src = valid ? x + (r0 + r) * c + 4 * q : x;
+            cp_async16(buf + r * stride + 4 * q, src, valid);
         }
-    }
-
-#pragma unroll
-    for (int m = 0; m < kRowsPerWarp; ++m) {
-        const int r = warp * kRowsPerWarp + m;
-        if (r >= nrows) break;
-#pragma unroll
-        for (int n = 0; n < kColsPerLane; ++n) {
-            const int col = lane + 32 * n;
-            if (col < c) {
-                const float norm = acc[m][n] + beta[col];
-                const float xv = xt[r * c + col];
-                y[(r0 + r) * c + col] =
-                    kInverse ? xv * sqrtf(norm) : xv * rsqrtf(norm);
-            }
+    } else {
+        for (int i = threadIdx.x; i < kTileRows * c; i += kThreads) {
+            const int r = i / c, q = i - r * c;
+            const bool valid = r0 + r < rows;
+            const float* src = valid ? x + (r0 + r) * c + q : x;
+            cp_async4(buf + r * stride + q, src, valid);
         }
     }
 }
 
 template <bool kInverse>
+__global__ void __launch_bounds__(kThreads, 1)
+gdn_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
+           const float* __restrict__ beta, float* __restrict__ y,
+           long long rows, int c) {
+    extern __shared__ __align__(16) float smem[];
+    const int kp = round8(c);          // K padded to the MMA depth
+    const int ksteps = kp >> 3;
+    const int stride = tile_stride(c);
+    // gamma [kp][kGammaStride], N zero-padded to 192: every warp then runs
+    // the same 6 n-fragments with no guard in the k-loop; the row stride
+    // 200 (= 8 mod 32 banks) keeps the B-fragment loads conflict-free
+    float* gs = smem;
+    float* xbuf = smem + kp * kGammaStride;  // two x tiles [2][32][stride]
+    const int tile_floats = kTileRows * stride;
+
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const int gid = lane >> 2;         // fragment row group
+    const int tig = lane & 3;          // thread in group
+    const long long ntiles = (rows + kTileRows - 1) / kTileRows;
+    const bool vec4 = (c & 3) == 0 &&
+                      (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+    const bool even = (c & 1) == 0 &&
+                      (reinterpret_cast<uintptr_t>(y) & 7) == 0;
+
+    // gamma -> shared memory, once per block, all in flight at once; the
+    // padding (rows >= C, columns >= C) is zero-filled by the same copies
+    if ((c & 3) == 0 && (reinterpret_cast<uintptr_t>(gamma) & 15) == 0) {
+        constexpr int per_row = kMaxChannels / 4;
+        for (int i = tid; i < kp * per_row; i += kThreads) {
+            const int r = i / per_row, q = 4 * (i - r * per_row);
+            const bool valid = r < c && q < c;
+            cp_async16(gs + r * kGammaStride + q,
+                       valid ? gamma + r * c + q : gamma, valid);
+        }
+    } else {
+        for (int i = tid; i < kp * kMaxChannels; i += kThreads) {
+            const int r = i / kMaxChannels, q = i - r * kMaxChannels;
+            const bool valid = r < c && q < c;
+            cp_async4(gs + r * kGammaStride + q,
+                      valid ? gamma + r * c + q : gamma, valid);
+        }
+    }
+    long long t = blockIdx.x;
+    load_tile(xbuf, x, rows, c, t, vec4);
+    cp_async_commit();  // gamma and the first tile
+    // zero the K padding of both tiles (cp.async never writes it)
+    for (int i = tid; i < 2 * kTileRows * (kp - c); i += kThreads) {
+        const int r = i / (kp - c);   // row of the two stacked tiles
+        xbuf[r * stride + c + (i - r * (kp - c))] = 0.0f;
+    }
+
+    const int m0 = 16 * (warp & 1);    // this warp's rows in the tile
+    const int f0 = warp >> 1;          // its first n-fragment (of 24)
+    float bcol[kFragsPerWarp][2];
+#pragma unroll
+    for (int j = 0; j < kFragsPerWarp; ++j) {
+        const int col = 8 * (f0 + kWarpsN * j) + 2 * tig;
+        bcol[j][0] = col < c ? beta[col] : 1.0f;
+        bcol[j][1] = col + 1 < c ? beta[col + 1] : 1.0f;
+    }
+
+    for (int it = 0; t < ntiles; t += gridDim.x, ++it) {
+        const float* xs = xbuf + (it & 1) * tile_floats;
+        if (t + gridDim.x < ntiles)
+            load_tile(xbuf + ((it + 1) & 1) * tile_floats, x, rows, c,
+                      t + gridDim.x, vec4);
+        cp_async_commit();  // possibly empty: keeps the group count uniform
+        cp_async_wait_one();
+        __syncthreads();
+
+        float acc[kFragsPerWarp][4];
+#pragma unroll
+        for (int j = 0; j < kFragsPerWarp; ++j)
+            acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+
+        // Each k-step adds a_lo*b_hi, then a_hi*b_lo, then a_hi*b_hi to
+        // every accumulator; the three passes go over all n-fragments in
+        // turn, so consecutive MMAs are independent and overlap.
+        const float* xa = xs + (m0 + gid) * stride + tig;
+#pragma unroll 4
+        for (int ks = 0; ks < ksteps; ++ks) {
+            uint32_t ahi[4], alo[4];
+            const float* xk = xa + 8 * ks;
+            const float v0 = xk[0], v1 = xk[8 * stride];
+            const float v2 = xk[4], v3 = xk[8 * stride + 4];
+            split(v0 * v0, ahi[0], alo[0]);
+            split(v1 * v1, ahi[1], alo[1]);
+            split(v2 * v2, ahi[2], alo[2]);
+            split(v3 * v3, ahi[3], alo[3]);
+            // B fragment (k = tig, tig + 4; n = gid) of n-fragment f
+            const float* gk = gs + (8 * ks + tig) * kGammaStride + gid;
+            uint32_t bhi[kFragsPerWarp][2], blo[kFragsPerWarp][2];
+#pragma unroll
+            for (int j = 0; j < kFragsPerWarp; ++j) {
+                const float* g = gk + 8 * (f0 + kWarpsN * j);
+                split(g[0], bhi[j][0], blo[j][0]);
+                split(g[4 * kGammaStride], bhi[j][1], blo[j][1]);
+            }
+#pragma unroll
+            for (int j = 0; j < kFragsPerWarp; ++j)
+                mma_tf32(acc[j], alo, bhi[j]);
+#pragma unroll
+            for (int j = 0; j < kFragsPerWarp; ++j)
+                mma_tf32(acc[j], ahi, blo[j]);
+#pragma unroll
+            for (int j = 0; j < kFragsPerWarp; ++j)
+                mma_tf32(acc[j], ahi, bhi[j]);
+        }
+
+        // epilogue: rows m0 + gid (+ 8), columns 8 f + 2 tig (+ 1); y is
+        // stored two columns at a time when C is even
+        const long long r0 = t * kTileRows;
+#pragma unroll
+        for (int j = 0; j < kFragsPerWarp; ++j) {
+            const int col = 8 * (f0 + kWarpsN * j) + 2 * tig;
+            if (col >= c) continue;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const int r = m0 + gid + 8 * h;
+                if (r0 + r >= rows) continue;
+                const float* xr = xs + r * stride + col;
+                float out[2];
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const float norm = acc[j][2 * h + e] + bcol[j][e];
+                    // sqrt(norm) as norm * rsqrt(norm): two operations
+                    // instead of the correctly rounded square root's
+                    // slow path, within 2 ulp (norm >= beta > 0)
+                    const float r = rsqrtf(norm);
+                    out[e] = kInverse ? xr[e] * (norm * r) : xr[e] * r;
+                }
+                float* yr = y + (r0 + r) * c + col;
+                if (even) {
+                    *reinterpret_cast<float2*>(yr) =
+                        make_float2(out[0], out[1]);
+                } else {
+                    yr[0] = out[0];
+                    if (col + 1 < c) yr[1] = out[1];
+                }
+            }
+        }
+        __syncthreads();  // the next prefetch may overwrite this buffer
+    }
+}
+
+// Per device: the SM count, and whether each variant's shared-memory limit
+// was raised (once, to what the widest C needs).
+struct DeviceState {
+    int sm_count = 0;
+    bool smem_set[2] = {false, false};
+};
+constexpr int kMaxDevices = 64;
+DeviceState g_devices[kMaxDevices];
+
+template <bool kInverse>
 cudaError_t launch(const float* x, const float* gamma, const float* beta,
                    float* y, long long rows, int c, cudaStream_t stream) {
-    const int smem = (kTileRows + kChunk) * c * static_cast<int>(sizeof(float));
-    cudaError_t err = cudaFuncSetAttribute(
-        gdn_kernel<kInverse>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
-    const long long blocks = (rows + kTileRows - 1) / kTileRows;
-    gdn_kernel<kInverse><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+    if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    DeviceState& st = g_devices[dev];
+    if (st.sm_count == 0) {
+        err = cudaDeviceGetAttribute(&st.sm_count,
+                                     cudaDevAttrMultiProcessorCount, dev);
+        if (err != cudaSuccess) return err;
+    }
+    if (!st.smem_set[kInverse]) {
+        err = cudaFuncSetAttribute(gdn_kernel<kInverse>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   smem_bytes(kMaxChannels));
+        if (err != cudaSuccess) return err;
+        st.smem_set[kInverse] = true;
+    }
+    const long long tiles = (rows + kTileRows - 1) / kTileRows;
+    const int blocks = static_cast<int>(tiles < st.sm_count ? tiles
+                                                            : st.sm_count);
+    gdn_kernel<kInverse><<<blocks, kThreads, smem_bytes(c), stream>>>(
         x, gamma, beta, y, rows, c);
     return cudaGetLastError();
 }
@@ -125,13 +333,12 @@ cudaError_t launch(const float* x, const float* gamma, const float* beta,
 }  // namespace
 
 // x, y: [rows, channels] float32, contiguous; gamma [channels, channels];
-// beta [channels]. Enqueues on `stream` and does not synchronise. Returns a
-// cudaError_t (0 on success).
+// beta [channels]; 1 <= channels <= 192. Enqueues on `stream` on the current
+// device and does not synchronise. Returns a cudaError_t (0 on success).
 extern "C" int epic_gdn_forward(const float* x, const float* gamma,
                                 const float* beta, float* y, long long rows,
                                 int channels, int inverse, void* stream) {
-    if (channels <= 0 || channels > kMaxChannels || rows < 0 ||
-        (rows + kTileRows - 1) / kTileRows > 0x7fffffffLL)
+    if (channels <= 0 || channels > kMaxChannels || rows < 0)
         return static_cast<int>(cudaErrorInvalidValue);
     if (rows == 0) return 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -3,11 +3,14 @@ the quantized CDF tables of the host coder.
 
 Scales are clamped from below at 0.11 and bucketed into a 64-entry
 log-spaced table in [0.11, 256]; each bucket has its own quantized CDF.
+Those default tables are part of the stream format and ship as data, equal
+to the JAX package's (``gaussian_cdf_tables.npz``).
 """
 
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -20,6 +23,8 @@ SCALES_MIN = 0.11
 SCALES_MAX = 256.0
 SCALES_LEVELS = 64
 _TAIL_MASS = 1e-9
+_TABLES_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "gaussian_cdf_tables.npz")
 
 
 def get_scale_table(minimum: float = SCALES_MIN, maximum: float = SCALES_MAX,
@@ -94,14 +99,39 @@ def gaussian_pmf(scale_table: np.ndarray, pmf_center: np.ndarray,
     return (upper - lower).numpy(), (2.0 * lower[:, 0]).numpy()
 
 
+def default_cdf_tables() -> CdfTables:
+    """The stream format's tables (64 scales of ``get_scale_table()``, tail
+    mass 1e-9, precision 16), read from ``gaussian_cdf_tables.npz``: the JAX
+    package's tables, written by ``tests/gen_torch_cdf_tables.py``."""
+    with np.load(_TABLES_FILE) as f:
+        flat, lengths, offset, width = (f["quantized_cdf"], f["cdf_length"],
+                                        f["offset"], int(f["table_width"]))
+    cdf = np.zeros((len(lengths), width), np.int32)
+    for i, row in enumerate(np.split(flat, np.cumsum(lengths)[:-1])):
+        cdf[i, :len(row)] = row
+    return CdfTables(quantized_cdf=cdf, cdf_length=lengths.astype(np.int32),
+                     offset=offset.astype(np.int32))
+
+
 def build_gaussian_cdf_tables(scale_table=None, tail_mass: float = _TAIL_MASS,
                               precision: int = 16) -> CdfTables:
-    """Quantized CDF tables for every scale bucket."""
+    """Quantized CDF tables for every scale bucket.
+
+    With the default scale table, tail mass and precision these are the
+    stream format's tables, equal to the JAX package's
+    (``default_cdf_tables``).
+    Other arguments compute the tables here with torch's float32 erfc; such
+    tables are not bit-compatible with the JAX package's, whose XLA erfc
+    rounds differently in the last bit and moves some entries by one count.
+    """
     from scipy.stats import norm
 
     if scale_table is None:
         scale_table = get_scale_table()
     scale_table = np.asarray(scale_table, dtype=np.float32)
+    if (tail_mass == _TAIL_MASS and precision == 16
+            and np.array_equal(scale_table, get_scale_table())):
+        return default_cdf_tables()
     multiplier = -float(norm.ppf(tail_mass / 2))
     pmf_center = np.ceil(scale_table * multiplier).astype(np.int32)
     pmf_length = 2 * pmf_center + 1

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import WinNoShiftAttention, gelu
-from ..ops.conv import SubpelConv, cast, conv, conv3x3, deconv
+from ..ops.conv import SubpelConv, add_bias, cast, conv, conv3x3, deconv
 from ..ops.gdn import GDN
 
 
@@ -117,7 +117,7 @@ def paramnet_apply(kernels, biases, x: torch.Tensor, i: int,
     x = x.permute(0, 3, 1, 2)
     for layer in range(n_layers):
         x, k, b = cast(dtype, x, kernels[layer][i], biases[layer][i])
-        x = F.conv2d(x, k, b, 1, 1)
+        x = add_bias(F.conv2d(x, k, None, 1, 1), b)
         if layer < n_layers - 1:
             x = gelu(x)
     return x.permute(0, 2, 3, 1).float()

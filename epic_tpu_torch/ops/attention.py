@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .conv import cast, conv1x1, conv3x3
+from .conv import add_bias, cast, conv1x1, conv3x3
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -77,7 +77,7 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, w, b = cast(self.dtype, x, self.weight, self.bias)
-        return F.linear(x, w, b)
+        return add_bias(F.linear(x, w), b, -1)
 
 
 class WindowAttention(nn.Module):

@@ -29,6 +29,16 @@ def cast(dtype, *tensors):
     return tuple(t.to(dtype) for t in tensors)
 
 
+def add_bias(y: torch.Tensor, b: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """y + b along ``dim``, as flax does: the product is rounded to the
+    compute dtype before the bias is added. A conv or matmul with the bias
+    fused in rounds once, and in bf16 about a quarter of the outputs then
+    differ from the JAX package's by one unit."""
+    shape = [1] * y.dim()
+    shape[dim] = -1
+    return y + b.reshape(shape)
+
+
 def to_nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
@@ -52,8 +62,8 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, w, b = cast(self.dtype, x, self.weight, self.bias)
-        y = F.conv2d(to_nchw(x), w, b, self.stride, self.padding)
-        return to_nhwc(y)
+        y = F.conv2d(to_nchw(x), w, None, self.stride, self.padding)
+        return to_nhwc(add_bias(y, b))
 
 
 def conv(in_ch: int, out_ch: int, dtype=None) -> Conv:
@@ -94,8 +104,8 @@ class ConvTranspose(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, w, b = cast(self.dtype, x, self.weight, self.bias)
-        y = F.conv_transpose2d(to_nchw(x), w, b, self.stride, padding=1)
-        return to_nhwc(y[:, :, :-1, :-1])
+        y = F.conv_transpose2d(to_nchw(x), w, None, self.stride, padding=1)
+        return to_nhwc(add_bias(y[:, :, :-1, :-1], b))
 
 
 def deconv(in_ch: int, out_ch: int, dtype=None) -> ConvTranspose:

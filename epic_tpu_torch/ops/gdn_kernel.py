@@ -4,9 +4,11 @@ PyTorch version.
 ``gdn(x, gamma, beta, inverse)`` computes, over the last axis of x,
 ``y = x * rsqrt(x^2 @ gamma + beta)`` (GDN) or ``x * sqrt(...)`` (inverse):
 for a tensor on the CPU with ``gdn_plain``; for a CUDA tensor with the
-hand-written kernel, or it raises. The kernel is compiled by ``nvcc`` from
-the repository's source at first use into ``epic_tpu_torch/_build/`` and
-bound with ctypes. ``gdn.launches`` counts kernel launches by kind.
+hand-written kernel (tensor cores, mma.sync 3xTF32), or it raises. The
+kernel is compiled by ``nvcc`` from the repository's source at first use
+into ``epic_tpu_torch/_build/`` and bound with ctypes once; a launch costs
+no more host work than the checks, the output allocation and the ctypes
+call. ``gdn.launches`` counts kernel launches by kind.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "gdn.cu")
 _BUILD_DIR = os.path.join(_PKG, "_build")
-MAX_CHANNELS = 256
+MAX_CHANNELS = 192  # csrc/gdn.cu keeps gamma and two x tiles in shared memory
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 
@@ -78,27 +80,38 @@ def _library() -> ctypes.CDLL:
 
 def gdn(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         inverse: bool = False) -> torch.Tensor:
-    """GDN over the last axis of x ([..., C] float32, contiguous)."""
-    if x.device.type == "cpu":
+    """GDN over the last axis of x ([..., C] float32, contiguous,
+    1 <= C <= MAX_CHANNELS on a CUDA device)."""
+    dev = x.device
+    if dev.type == "cpu":
         return gdn_plain(x, gamma, beta, inverse)
-    if x.device.type != "cuda":
-        raise ValueError(f"gdn: unsupported device {x.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"gdn: unsupported device {dev}")
     c = x.shape[-1]
-    for name, t in (("x", x), ("gamma", gamma), ("beta", beta)):
-        if t.device != x.device or t.dtype != torch.float32 \
-                or not t.is_contiguous():
-            raise ValueError(f"gdn: {name} must be a contiguous float32 "
-                             f"tensor on {x.device}")
-    if gamma.shape != (c, c) or beta.shape != (c,) or not 0 < c <= MAX_CHANNELS:
+    f32 = torch.float32
+    if not (x.dtype is f32 and gamma.dtype is f32 and beta.dtype is f32
+            and gamma.device == dev and beta.device == dev
+            and x.is_contiguous() and gamma.is_contiguous()
+            and beta.is_contiguous()):
+        raise ValueError(f"gdn: x, gamma and beta must be contiguous "
+                         f"float32 tensors on {dev}")
+    if (gamma.shape != (c, c) or beta.shape != (c,)
+            or not 0 < c <= MAX_CHANNELS):
         raise ValueError(f"gdn: bad shapes x {tuple(x.shape)}, gamma "
-                         f"{tuple(gamma.shape)}, beta {tuple(beta.shape)}")
-    y = torch.empty_like(x)
+                         f"{tuple(gamma.shape)}, beta {tuple(beta.shape)} "
+                         f"(1 <= C <= {MAX_CHANNELS})")
+    index = dev.index
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return gdn(x, gamma, beta, inverse)
     lib = _library()
-    with torch.cuda.device(x.device):
-        rc = lib.epic_gdn_forward(
-            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
-            x.numel() // c, c, int(inverse),
-            torch.cuda.current_stream(x.device).cuda_stream)
+    y = torch.empty_like(x)
+    # the raw handle of PyTorch's current stream (what
+    # torch.cuda.current_stream().cuda_stream gives, without building a
+    # Stream object on every call)
+    rc = lib.epic_gdn_forward(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                              y.data_ptr(), x.numel() // c, c, int(inverse),
+                              torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"gdn kernel launch failed: CUDA error {rc}")
     gdn.launches["igdn" if inverse else "gdn"] += 1

@@ -1,10 +1,10 @@
 """Entropy models and host rANS of the PyTorch port against the JAX package.
 
 Likelihoods are held to a tolerance (float32 erfc of two libraries:
-rtol 1e-5, atol 1e-7); CDF-table indexes and quantized CDF tables must be
-equal on the same pmf, and rANS streams byte-identical to the JAX package's
-``RansCoder`` (the cases of tests/test_rans.py), with each side decoding
-the other's bytes.
+rtol 1e-5, atol 1e-7); CDF-table indexes, the default quantized CDF tables
+(shipped as data) and tables quantized from the same pmf must be equal,
+and rANS streams byte-identical to the JAX package's ``RansCoder`` (the
+cases of tests/test_rans.py), with each side decoding the other's bytes.
 """
 
 import numpy as np
@@ -22,6 +22,7 @@ from epic_tpu_torch.convert import from_jax_params
 from epic_tpu_torch.entropy import coder, gaussian
 from epic_tpu_torch.entropy.bottleneck import EntropyBottleneck
 from epic_tpu_torch.entropy.ops import lower_bound, nn_param_apply
+from gen_torch_cdf_tables import reference_arrays
 
 
 def _gauss_pmf(scale, length):
@@ -104,8 +105,27 @@ def test_gaussian_cdf_tables_equal():
     same = gaussian.quantize_pmf_rows(np.asarray(pmf),
                                       np.asarray(tail)[:, 0], 2 * center + 1)
     np.testing.assert_array_equal(same, ref.quantized_cdf)
-    # each package's own pmf (torch's and XLA's float32 erfc differ in the
-    # last bit here and there) moves a few CDF entries by one count
+    # the default tables are the stream format's: equal entry for entry
+    np.testing.assert_array_equal(ours.quantized_cdf, ref.quantized_cdf)
+
+
+def test_shipped_cdf_tables_equal_the_generator():
+    want = reference_arrays()
+    with np.load(gaussian._TABLES_FILE) as f:
+        assert set(f.files) == set(want)
+        for k, v in want.items():
+            assert f[k].dtype == v.dtype, k
+            np.testing.assert_array_equal(f[k], v, err_msg=k)
+
+
+def test_gaussian_cdf_tables_other_scales():
+    # tables outside the stream format are computed with torch's erfc:
+    # same lengths and offsets, entries within one count of XLA's
+    table = gaussian.get_scale_table()[:40:3] * np.float32(1.5)
+    ours = gaussian.build_gaussian_cdf_tables(table)
+    ref = jgaussian.build_gaussian_cdf_tables(table)
+    np.testing.assert_array_equal(ours.cdf_length, ref.cdf_length)
+    np.testing.assert_array_equal(ours.offset, ref.offset)
     assert np.abs(ours.quantized_cdf - ref.quantized_cdf).max() <= 1
 
 

@@ -1,7 +1,9 @@
 """Tests of the port that need a CUDA device: the GDN kernel against its
-plain version at the main path's shapes, and a tiny codec round trip
-through the kernel. They skip without a device. This file imports no JAX,
-so on a machine without it run it without the repository's conftest:
+plain version (max relative error 1e-5) at the main path's shapes, at
+ragged row counts and at every width it takes, rows whose bits do not
+depend on where they sit, and a tiny codec round trip through the kernel.
+They skip without a device. This file imports no JAX, so on a machine
+without it run it without the repository's conftest:
 
     PYTHONPATH=. python -m pytest --noconftest tests/test_torch_gdn_cuda.py
 """
@@ -11,7 +13,7 @@ import pytest
 import torch
 
 import epic_tpu_torch as et
-from epic_tpu_torch.ops.gdn_kernel import gdn, gdn_plain
+from epic_tpu_torch.ops.gdn_kernel import MAX_CHANNELS, gdn, gdn_plain
 
 
 def _need_cuda():
@@ -40,13 +42,66 @@ def test_kernel_matches_plain(rows, inverse):
     assert gdn.launches["igdn" if inverse else "gdn"] == before + 1
 
 
+def _data(rows, c, seed=2):
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.normal(0, 1, (rows, c)).astype(np.float32),
+                        device="cuda")
+    gamma = torch.as_tensor((0.1 * np.eye(c) + 0.01 * rng.random((c, c)))
+                            .astype(np.float32), device="cuda")
+    beta = torch.as_tensor((1.0 + 0.1 * rng.random(c)).astype(np.float32),
+                           device="cuda")
+    return x, gamma, beta
+
+
+def _max_rel(got, want):
+    return ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 31, 33, 98_309])
+@pytest.mark.parametrize("inverse", [False, True], ids=["gdn", "igdn"])
+def test_kernel_matches_plain_ragged_rows(rows, inverse):
+    _need_cuda()
+    x, gamma, beta = _data(rows, 192, seed=3)
+    assert _max_rel(gdn(x, gamma, beta, inverse),
+                    gdn_plain(x, gamma, beta, inverse)) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True], ids=["gdn", "igdn"])
+def test_kernel_matches_plain_every_width(inverse):
+    _need_cuda()
+    for c in range(1, MAX_CHANNELS + 1):
+        x, gamma, beta = _data(333, c, seed=c)
+        rel = _max_rel(gdn(x, gamma, beta, inverse),
+                       gdn_plain(x, gamma, beta, inverse))
+        assert rel <= 1e-5, f"C={c}: {rel:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True], ids=["gdn", "igdn"])
+def test_kernel_rows_do_not_depend_on_their_position(inverse):
+    """The same 21 rows alone and at offsets 0, 5 and 37 inside 98,304 rows
+    give the same bits (the encoder and decoder batch rows differently)."""
+    _need_cuda()
+    x, gamma, beta = _data(98_304, 192, seed=4)
+    rows = x[:21].clone()
+    alone = gdn(rows, gamma, beta, inverse)
+    for off in (0, 5, 37):
+        big = x.clone()
+        big[off:off + 21] = rows
+        assert torch.equal(gdn(big, gamma, beta, inverse)[off:off + 21],
+                           alone), f"offset {off}"
+
+
 @pytest.mark.cuda
 def test_kernel_rejects_what_it_cannot_take():
     _need_cuda()
-    x = torch.zeros(4, 300, device="cuda")
+    c = MAX_CHANNELS + 1
+    x = torch.zeros(4, c, device="cuda")
     with pytest.raises(ValueError):
-        gdn(x, torch.zeros(300, 300, device="cuda"),
-            torch.ones(300, device="cuda"))
+        gdn(x, torch.zeros(c, c, device="cuda"),
+            torch.ones(c, device="cuda"))
     with pytest.raises(ValueError):
         gdn(x[:, :8].half(), torch.zeros(8, 8, device="cuda"),
             torch.ones(8, device="cuda"))

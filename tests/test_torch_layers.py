@@ -4,7 +4,9 @@ the same weights carried across by ``from_jax_params``.
 Weights are drawn with numpy into the exact parameter tree of each flax
 module (its shapes from ``jax.eval_shape``), so nothing is trained or
 initialised twice. Everything runs in float32 on the CPU; tolerance
-atol 1e-4 (float32 sums in another order through up to ~30 layers).
+atol 1e-4 (float32 sums in another order through up to ~30 layers). A lone
+conv or dense layer in bfloat16 must equal flax's bitwise: the product is
+rounded to bf16 before the bias is added, as flax does.
 Random kernels are not spatially symmetric, so a flipped or shifted
 transposed conv would show.
 """
@@ -18,6 +20,7 @@ import torch
 from torch import nn
 import jax
 import jax.numpy as jnp
+from flax import linen as flax_nn
 
 from epic_tpu_torch.convert import from_jax_params
 from epic_tpu_torch.models import builder
@@ -115,6 +118,40 @@ def test_conv(kind):
             "conv1x1": (lambda: jconv.conv1x1(12),
                         lambda: conv.conv1x1(6, 12))}[kind]
     check(make[0](), make[1](), _x((2, 16, 12, 6)), name="Conv_0")
+
+
+@pytest.mark.parametrize("kind", ["conv5s2", "conv3x3", "conv3x3s2",
+                                  "conv1x1", "deconv", "subpel", "dense"])
+def test_bf16_layer_bitwise(kind):
+    bf, tbf = jnp.bfloat16, torch.bfloat16
+    flax_mod, torch_mod, name, shape = {
+        "conv5s2": (jconv.conv(12, dtype=bf), conv.conv(6, 12, tbf),
+                    "Conv_0", (2, 16, 12, 6)),
+        "conv3x3": (jconv.conv3x3(12, dtype=bf),
+                    conv.conv3x3(6, 12, dtype=tbf), "Conv_0", (2, 16, 12, 6)),
+        "conv3x3s2": (jconv.conv3x3(12, stride=2, dtype=bf),
+                      conv.conv3x3(6, 12, stride=2, dtype=tbf), "Conv_0",
+                      (2, 16, 12, 6)),
+        "conv1x1": (jconv.conv1x1(12, dtype=bf), conv.conv1x1(6, 12, tbf),
+                    "Conv_0", (2, 16, 12, 6)),
+        "deconv": (jconv.deconv(5, dtype=bf), conv.deconv(6, 5, tbf),
+                   "ConvTranspose_0", (2, 6, 5, 6)),
+        "subpel": (jconv.SubpelConv(4, 2, dtype=bf),
+                   conv.SubpelConv(6, 4, 2, tbf), "SubpelConv_0",
+                   (1, 5, 4, 6)),
+        "dense": (flax_nn.Dense(40, dtype=bf), attention.Dense(24, 40, tbf),
+                  "Dense_0", (4, 16, 24)),
+    }[kind]
+    x = _x(shape, 5)
+    params = flax_params(flax_mod, jnp.asarray(x))
+    want = np.asarray(jax.jit(lambda p, a: flax_mod.apply({"params": p}, a))(
+        params, jnp.asarray(x))).astype(np.float32)
+    torch_mod = Holder(name, torch_mod)
+    torch_mod.load_state_dict(from_jax_params({name: params}, torch_mod))
+    with torch.no_grad():
+        got = torch_mod(torch.from_numpy(x))
+    assert got.dtype == tbf
+    np.testing.assert_array_equal(got.float().numpy(), want)
 
 
 def test_deconv_asymmetric_kernel():
