@@ -11,27 +11,42 @@ Phases, one progress line each (flush=True):
     started together;
  3. kernels: fused GDN and inverse GDN against ``gdn_plain``, max relative
     error <= 1e-5: at the main path's row counts (98,304 / 24,576 / 6,144
-    for a 768x512 image, and a ragged 21), C = 192, with CUDA-event times of
-    the kernel, of ``gdn_plain`` and of the product alone
+    for a 768x512 image, and a ragged 21; for IGDN also the rows of
+    ``progressive_decode_all``, whose 15 levels fold into the batch:
+    1,474,560 / 368,640 / 92,160), C = 192, with CUDA-event times of the
+    kernel, of ``gdn_plain`` and of the product alone
     (``torch.matmul(x*x, gamma)``, cuBLAS SGEMM) beside the tensor-core and
     CUDA-core bounds; at ragged R 1 / 31 / 33 / 98,309; at every C the
     kernel takes (R = 333); and 21 rows alone against the same rows at
     offsets 0, 5 and 37 inside 98,304, bitwise;
- 4. main path: the full-width ``pic`` model (N=192, M=640, division
-    (320, 640), dim_chunk 32, bf16 compute, random weights from a seed) on a
-    seeded synthetic 768x512 image (``epic_tpu_torch/tools/workload.py``):
+ 4. ``pic`` path: the full-width ``pic`` model (N=192, M=640, division
+    (320, 640), dim_chunk 32, bf16 compute, random weights from a seed) on
+    a seeded synthetic 768x512 image (``epic_tpu_torch/tools/workload.py``):
     ``progressive_encode`` with the 15-shell ``DEFAULT_Q_LIST``, then
     ``progressive_decode`` of levels 0..15. Every level's y_hat and x_hat
     must equal the encoder's own reconstruction bitwise, the decoded symbols
     the encoder's, bpp must not decrease with the level and PSNR must be
-    finite. The kernel launch counts of this run must match the count per
-    image;
- 5. reference: a small float32 model on the GPU against the same code on
-    the CPU (the plain GDN), entropy parameters within 1e-3.
+    finite;
+ 5. main path: the full-width flagship ``rem`` model (the ``pic`` model
+    plus REM banks, check levels 0.25 / 0.75, random weights from a seed)
+    on the same image, as ``bench.py`` runs it: ``progressive_encode`` with
+    ``rems=True`` (the chained checkpoint latents extracted inside the
+    encode), ``progressive_decode`` of levels 0..15 with the encoder's
+    checkpoint latents, and ``progressive_decode_all`` twice. Checks: every
+    level bitwise as in phase 4; the encoder's checkpoint latents bitwise
+    equal to a separate ``extract_checkpoint`` chain; the REM-chained
+    scales differ from the plain chain's; ``decode_all`` gives the same
+    bits twice and is within DECODE_ALL_ATOL of the per-level decode;
+ 6. reference: small float32 ``pic`` and ``rem`` models on the GPU against
+    the same code on the CPU, entropy parameters (REM-refined for ``rem``)
+    within 1e-3.
 
-Any failure raises and exits non-zero. The line before the last is the
-kernels' JSON record; the last line is the device record. Needs one CUDA
-device and no network; writes only into the package's build directories.
+Each path's kernel launches are counted from zero and must match its count
+per image (GDN 6 per encode; IGDN 3 per decoded level, 48 for levels
+0..15, 9 per ``decode_all``). Any failure raises and exits non-zero. The
+line before the last is the kernels' JSON record; the last line is the
+device record. Needs one CUDA device and no network; writes only into the
+package's build directories.
 """
 
 from __future__ import annotations
@@ -52,9 +67,17 @@ import torch
 _PEAKS = {"SXM": (67.0, 495.0, 3.35), "PCIe": (51.0, 378.0, 2.0),
           "NVL": (60.0, 417.5, 3.9)}
 GDN_ROWS = (98_304, 24_576, 6_144, 21)
+# IGDN in progressive_decode_all: 15 levels folded into the batch
+IGDN_FOLDED_ROWS = (1_474_560, 368_640, 92_160)
 GDN_RAGGED_ROWS = (1, 31, 33, 98_309)
 GDN_C = 192
 REL_TOL = 1e-5
+# progressive_decode_all against the per-level decode, x_hat in [0, 1]. cuDNN
+# picks other convolution kernels for the folded batch (15 levels) than for
+# batch 1, and they round bf16 work differently; with cuDNN off the two
+# agree bitwise (python3 -m epic_tpu_torch.tools.fold_diff). x_hat leaves
+# g_s's last conv in bf16, whose step is 2^-8 just below 1: five such steps.
+DECODE_ALL_ATOL = 5 * 2.0 ** -8
 
 
 def log(msg: str) -> None:
@@ -193,12 +216,12 @@ def phase_kernels(smi: str):
     rng = np.random.default_rng(0)
     c = GDN_C
     _, gamma, beta = _gdn_data(1, c, rng, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
     rows_out = {}
     for inverse, name in ((False, "gdn"), (True, "igdn")):
         per_shape = []
-        for rows in GDN_ROWS:
-            x = torch.as_tensor(rng.normal(0, 1, (rows, c)).astype(np.float32),
-                                device=dev)
+        for rows in (IGDN_FOLDED_ROWS if inverse else ()) + GDN_ROWS:
+            x = torch.randn((rows, c), generator=gen, device=dev)
             abs_err, rel = _check_gdn(f"{name} R={rows}", x, gamma, beta,
                                       inverse)
             ms = time_cuda(lambda: gdn(x, gamma, beta, inverse))
@@ -237,55 +260,75 @@ def phase_kernels(smi: str):
     return rows_out
 
 
-def phase_main_path():
+def _counted(fn):
+    """Run fn with the kernel launch counts set to 0 just before; returns
+    (fn's result, the counts just after)."""
+    from epic_tpu_torch.ops.gdn_kernel import gdn
+
+    torch.cuda.synchronize()
+    gdn.launches.update(gdn=0, igdn=0)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(gdn.launches)
+
+
+def _expect(tag: str, path: str, launches: dict, expect: dict) -> None:
+    log(f"[{tag}] {path}: kernel launches {launches} (expected per image "
+        f"{expect})")
+    if launches != expect:
+        raise AssertionError(f"{path}: launch counts {launches} != {expect}")
+
+
+def _encode_and_decode_levels(tag: str, codec, x, rems: bool):
+    """Encode x, then decode levels 0..Q with one cache (and the encoder's
+    checkpoint latents), each path's launches counted apart. Prints the
+    times with their device / host rANS split. Returns (bitstreams,
+    encoder state, [(x_hat, y_hat, decoded symbols)] per level, launches
+    by path)."""
     import epic_tpu_torch as et
     from epic_tpu_torch.codec.progressive import decoded_symbols
-    from epic_tpu_torch.ops.gdn_kernel import gdn
-    from epic_tpu_torch.tools.workload import (H, W, decode_levels,
-                                               full_width_codec, images)
-    from epic_tpu_torch.utils.metrics import compute_psnr
-
-    t0 = time.perf_counter()
-    codec = full_width_codec(0)  # cuda
-    model = codec.model
-    x, warm = images()
-    log(f"[4 main] model + codec set up in {time.perf_counter() - t0:.1f} s "
-        f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params)")
-
-    # warm-up on another image (cuDNN / cuBLAS handles, allocator)
-    for _ in decode_levels(codec, et.progressive_encode(codec, warm)[0]):
-        pass
-    torch.cuda.synchronize()
+    from epic_tpu_torch.tools.workload import decode_levels
 
     nq = len(et.DEFAULT_Q_LIST)
-    gdn.launches.update(gdn=0, igdn=0)
     enc_t, state = {}, {}
     t = time.perf_counter()
-    bs, bits = et.progressive_encode(codec, x, timing=enc_t, state=state)
+    (bs, _), enc_launches = _counted(lambda: et.progressive_encode(
+        codec, x, rems=rems, timing=enc_t, state=state))
     enc_s = time.perf_counter() - t
     dec_t, outs, level_s = {}, [], []
-    t = time.perf_counter()
-    for lvl, out in decode_levels(codec, bs, dec_t):
-        level_s.append(time.perf_counter() - t)
-        outs.append((out["x_hat"].clone(), out["y_hat"].clone(),
-                     decoded_symbols(out["cache"]) if lvl else None))
-        t = time.perf_counter()
-    launches = dict(gdn.launches)
 
-    # g_a x2 (3 GDN each); g_s once per decoded level (3 IGDN each)
-    expect = {"gdn": 6, "igdn": 3 * (nq + 1)}
-    log(f"[4 main] encode {enc_s:.3f} s (device {enc_t['device_s']:.3f}, "
+    def walk():
+        t = time.perf_counter()
+        for lvl, out in decode_levels(codec, bs, dec_t, rems,
+                                      state["auto_ckpts"]):
+            level_s.append(time.perf_counter() - t)
+            outs.append((out["x_hat"].clone(), out["y_hat"].clone(),
+                         decoded_symbols(out["cache"]) if lvl else None))
+            t = time.perf_counter()
+
+    _, dec_launches = _counted(walk)
+    log(f"[{tag}] encode {enc_s:.3f} s (device {enc_t['device_s']:.3f}, "
         f"host rANS {enc_t['rans_s']:.3f}); decode levels 0..{nq} "
         f"{sum(level_s):.3f} s (device {dec_t['device_s']:.3f}, host rANS "
         f"{dec_t['rans_s']:.3f})")
-    log("[4 main] per-level decode s: "
+    log(f"[{tag}] per-level decode s: "
         + " ".join(f"{s:.4f}" for s in level_s)
         + f" (median {np.median(level_s):.4f}, worst {max(level_s):.4f})")
-    log(f"[4 main] kernel launches {launches} (expected per image {expect})")
-    if launches != expect:
-        raise AssertionError(f"launch counts {launches} != {expect}")
+    # g_a x2 (3 GDN each); checkpoint latents skip g_s; g_s once per level
+    _expect(tag, "encode", enc_launches, {"gdn": 6, "igdn": 0})
+    _expect(tag, f"decode of levels 0..{nq}", dec_launches,
+            {"gdn": 0, "igdn": 3 * (nq + 1)})
+    return bs, state, outs, {"encode": enc_launches,
+                             "decode": dec_launches}
 
-    # the encoder's own reconstruction of every level, bitwise
+
+def _check_levels(tag: str, codec, x, bs, state, outs) -> None:
+    """Every decoded level bitwise equal to the encoder's own
+    reconstruction (symbols, y_hat, x_hat); bpp non-decreasing, PSNR
+    finite."""
+    from epic_tpu_torch.tools.workload import H, W
+    from epic_tpu_torch.utils.metrics import compute_psnr
+
     xt = torch.as_tensor(x, device=codec.device)
     prefix = bs["prefix"]
     base_bytes = sum(len(s) for s in bs["z"])
@@ -293,16 +336,18 @@ def phase_main_path():
     sid_flat = state["sid"].transpose(0, 1).reshape(1, -1).cpu().numpy()
     last_bpp = -1.0
     for lvl, (x_hat, y_hat, canvas) in enumerate(outs):
-        if lvl == 0:
-            x_e, y_e = codec.synth_base(state["base_slices"])
-        else:
-            keep = state["sid"].to(torch.int32) < lvl
-            x_e, y_e = codec.prog_reconstruct(state["psym"] * keep,
-                                              state["mu_s"], state["msups"],
-                                              state["base_slices"])
-            want_sym = np.where(sid_flat < lvl, p_flat, 0)
-            if not np.array_equal(canvas, want_sym):
-                raise AssertionError(f"level {lvl}: decoded symbols differ")
+        with torch.no_grad():
+            if lvl == 0:
+                x_e, y_e = codec.synth_base(state["base_slices"])
+            else:
+                keep = state["sid"].to(torch.int32) < lvl
+                x_e, y_e = codec.prog_reconstruct(
+                    state["psym"] * keep, state["mu_s"], state["msups"],
+                    state["base_slices"])
+                want_sym = np.where(sid_flat < lvl, p_flat, 0)
+                if not np.array_equal(canvas, want_sym):
+                    raise AssertionError(f"level {lvl}: decoded symbols "
+                                         "differ")
         if not (torch.equal(y_e, y_hat) and torch.equal(x_e, x_hat)):
             raise AssertionError(f"level {lvl}: y_hat/x_hat not bitwise "
                                  "equal to the encoder's")
@@ -313,30 +358,126 @@ def phase_main_path():
             raise AssertionError(f"level {lvl}: bpp {bpp} psnr {psnr} "
                                  f"shape {tuple(x_hat.shape)}")
         last_bpp = bpp
-        log(f"[4 main] level {lvl:2d}: bpp {bpp:.4f} psnr {psnr:.3f} dB, "
+        log(f"[{tag}] level {lvl:2d}: bpp {bpp:.4f} psnr {psnr:.3f} dB, "
             "symbols and y_hat equal the encoder's")
+
+
+def _warm_up(codec, warm, rems: bool) -> None:
+    """One encode and decode of other data (cuDNN / cuBLAS handles, the
+    allocator)."""
+    import epic_tpu_torch as et
+    from epic_tpu_torch.tools.workload import decode_levels
+
+    st = {}
+    bs, _ = et.progressive_encode(codec, warm, rems=rems, state=st)
+    for _ in decode_levels(codec, bs, None, rems, st["auto_ckpts"]):
+        pass
+    if rems:
+        et.progressive_decode_all(codec, bs, rems, st["auto_ckpts"])
+    torch.cuda.synchronize()
+
+
+def phase_pic_path():
+    from epic_tpu_torch.tools.workload import full_width_codec, images
+
+    t0 = time.perf_counter()
+    codec = full_width_codec(0, name="pic")  # cuda
+    x, warm = images()
+    log(f"[4 pic] model + codec set up in {time.perf_counter() - t0:.1f} s "
+        f"({sum(p.numel() for p in codec.model.parameters()) / 1e6:.1f} M "
+        "params)")
+    _warm_up(codec, warm, False)
+    bs, state, outs, _ = _encode_and_decode_levels("4 pic", codec, x, False)
+    _check_levels("4 pic", codec, x, bs, state, outs)
+
+
+def phase_main_path():
+    """The flagship rem model: encode with REMs, decode of levels 0..15,
+    decode_all; returns the launches by path."""
+    import epic_tpu_torch as et
+    from epic_tpu_torch.tools.workload import full_width_codec, images
+
+    t0 = time.perf_counter()
+    codec = full_width_codec(0)  # the flagship rem configuration, cuda
+    x, warm = images()
+    log(f"[5 main] model + codec set up in {time.perf_counter() - t0:.1f} s "
+        f"({sum(p.numel() for p in codec.model.parameters()) / 1e6:.1f} M "
+        "params)")
+    _warm_up(codec, warm, True)
+    bs, state, outs, launches = _encode_and_decode_levels("5 main", codec, x,
+                                                          True)
+    nq = len(bs["q_list"])
+    runs = []
+    for k in range(2):
+        t_all = {}
+        t = time.perf_counter()
+        out, n = _counted(lambda: et.progressive_decode_all(
+            codec, bs, True, state["auto_ckpts"], t_all))
+        log(f"[5 main] decode_all run {k + 1}: {time.perf_counter() - t:.3f}"
+            f" s (device {t_all['device_s']:.3f}, host rANS "
+            f"{t_all['rans_s']:.3f})")
+        # the top level, g_s of the base, then all Q levels folded
+        _expect("5 main", "decode_all", n, {"gdn": 0, "igdn": 9})
+        runs.append(out["x_hat"])
+    launches["decode_all"] = n
+    if not torch.equal(runs[0], runs[1]):
+        raise AssertionError("decode_all is not deterministic")
+    x_all = runs[0]
+    if tuple(x_all.shape) != (1 + nq,) + tuple(outs[0][0].shape):
+        raise AssertionError(f"decode_all shape {tuple(x_all.shape)}")
+    diffs = [float((x_all[lvl] - outs[lvl][0]).abs().max())
+             for lvl in range(1 + nq)]
+    log("[5 main] decode_all vs per-level decode, max abs diff by level: "
+        + " ".join(f"{d:.2e}" for d in diffs)
+        + f" (max {max(diffs):.3e}, tolerance {DECODE_ALL_ATOL}; twice "
+        "bitwise equal)")
+    if not max(diffs) <= DECODE_ALL_ATOL:
+        raise AssertionError(f"decode_all differs from the per-level decode "
+                             f"by {max(diffs)}")
+
+    _check_levels("5 main", codec, x, bs, state, outs)
+    prev = None
+    for j, cl in enumerate(codec.model.check_levels):
+        prev = codec.extract_checkpoint(x, cl, prev)
+        if not torch.equal(prev, state["auto_ckpts"][j]):
+            raise AssertionError(f"checkpoint latent {cl}: the encoder's "
+                                 "differs from extract_checkpoint")
+    with torch.no_grad():
+        plain = codec.prog_params(state["base_slices"], state["lm"],
+                                  state["ls"])
+    d_scale = float((plain[1] - state["scale_s"]).abs().max())
+    if d_scale == 0.0:
+        raise AssertionError("REM-chained scales equal the plain chain's")
+    log(f"[5 main] checkpoint latents at {codec.model.check_levels} bitwise "
+        "equal to extract_checkpoint; REM-chained scales differ from the "
+        f"plain chain's by up to {d_scale:.3e}")
     return launches
 
 
 def phase_reference():
-    """A small float32 model on the GPU against the same code on the CPU."""
+    """Small float32 models on the GPU against the same code on the CPU."""
     import epic_tpu_torch as et
 
-    cfg = dict(n=32, m=32, division=(16, 32), dim_chunk=8,
-               param_net_widths=(24, 16))
+    tiny = dict(n=32, m=32, division=(16, 32), dim_chunk=8,
+                param_net_widths=(24, 16))
     x = np.random.default_rng(1).random((1, 64, 64, 3), dtype=np.float32)
-    states = []
-    for device in ("cuda", "cpu"):
-        codec = et.PICCodec(et.VarianceMaskingPIC(**cfg).init_weights(0), device=device)
-        st = {}
-        et.progressive_encode(codec, x, state=st)
-        states.append({k: st[k].float().cpu() for k in ("mu_s", "scale_s")})
-    for k in ("mu_s", "scale_s"):
-        err = float((states[0][k] - states[1][k]).abs().max())
-        log(f"[5 reference] tiny f32 model, GPU vs CPU {k}: max abs diff "
-            f"{err:.2e} (tolerance 1e-3)")
-        if not err <= 1e-3:
-            raise AssertionError(f"{k} differs between GPU and CPU: {err}")
+    for name, cfg in (("pic", tiny), ("rem", dict(
+            tiny, check_levels=(0.25, 0.75), rem_dimension="middle"))):
+        states = []
+        for device in ("cuda", "cpu"):
+            codec = et.PICCodec(et.get_model(name, **cfg).init_weights(0),
+                                device=device)
+            st = {}
+            et.progressive_encode(codec, x, rems=name == "rem", state=st)
+            states.append({k: st[k].float().cpu()
+                           for k in ("mu_s", "scale_s")})
+        for k in ("mu_s", "scale_s"):
+            err = float((states[0][k] - states[1][k]).abs().max())
+            log(f"[6 reference] tiny f32 {name} model, GPU vs CPU {k}: max "
+                f"abs diff {err:.2e} (tolerance 1e-3)")
+            if not err <= 1e-3:
+                raise AssertionError(f"{name} {k} differs between GPU and "
+                                     f"CPU: {err}")
 
 
 def main() -> int:
@@ -348,20 +489,22 @@ def main() -> int:
     smi = phase_environment()
     phase_build()
     per_shape = phase_kernels(smi)
+    phase_pic_path()
     launches = phase_main_path()
     phase_reference()
     kernels = []
     for name in ("gdn", "igdn"):
-        top = per_shape[name][0]  # the largest main-path call, R = 98,304
+        top = per_shape[name][0]  # the largest call of the main path
         kernels.append({
             "name": name, "route": "cuda",
             "source": "epic_tpu_torch/csrc/gdn.cu",
             "replaces": "epic_tpu/ops/pallas_gdn.py:37",
-            "launches": launches[name],
+            "launches": sum(n[name] for n in launches.values()),
             "max_abs_err": max(r["max_abs_err"] for r in per_shape[name]),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-            "library_ms": None,
+            "library_ms": None, "rows": top["rows"],
+            "launches_by_path": {k: n[name] for k, n in launches.items()},
             "cuda_core_bound_ms": top["cuda_core_bound_ms"],
             "product_ms": top["product_ms"]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

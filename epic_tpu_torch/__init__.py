@@ -6,9 +6,11 @@ the JAX package. Entry points run on the GPU unless given ``device="cpu"``.
 """
 
 from .codec import (DEFAULT_Q_LIST, PICCodec, progressive_decode,
-                    progressive_encode)
-from .convert import from_jax_params
-from .models import VarianceMaskingPIC
+                    progressive_decode_all, progressive_encode)
+from .convert import from_jax_params, load_checkpoint
+from .models import VarianceMaskingPIC, VarianceMaskingPICREM, get_model
 
 __all__ = ["DEFAULT_Q_LIST", "PICCodec", "VarianceMaskingPIC",
-           "from_jax_params", "progressive_decode", "progressive_encode"]
+           "VarianceMaskingPICREM", "from_jax_params", "get_model",
+           "load_checkpoint", "progressive_decode", "progressive_decode_all",
+           "progressive_encode"]

@@ -6,7 +6,10 @@ shape and dtype, so the decoder re-derives the encoder's values bit for bit
 (the variance mask is never transmitted). Only the base chain is
 interleaved with the host coder: slice i+1's parameters need slice i's
 decoded content. The progressive stage is quality-independent given the
-base latent, so its parameters are computed once.
+base latent (and, for a ``rem`` model, the checkpoint latents that its
+REMs are conditioned on), so its parameters are computed once. A
+checkpoint latent is the progressive latent at one quality, computed from
+the encoder's symbols alone (the rANS round trip is lossless).
 
 Symbols and CDF indexes cross to the host as packed integer arrays, one
 copy per stage; the host rANS coder runs batched calls over threads.
@@ -15,7 +18,7 @@ copy per stage; the host rANS coder runs batched calls over threads.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -24,6 +27,7 @@ from ..device import resolve_device
 from ..entropy.coder import RansCoder
 from ..entropy.gaussian import build_indexes, gaussian_coder, get_scale_table
 from ..models.pic import VarianceMaskingPIC, slices_of
+from ..ops.masking import prog_mask
 
 
 class PICCodec:
@@ -96,37 +100,139 @@ class PICCodec:
                 acc.append(t)
         return out
 
+    def encode_base(self, x: torch.Tensor) -> Dict[str, Any]:
+        """The encoder's front, hyperprior and base chain (it knows every
+        symbol): y, z_sym, lm, ls, and the base chain's y_hat slices,
+        mus, scales, CDF indexes and symbols."""
+        y, z_sym = self.front(x)
+        lm, ls = self.zhat_hyper(z_sym)
+        c = self.model.dim_chunk
+        y_base = y[..., :self.model.division[0]]
+
+        def symbols(i, mu, idx):
+            return torch.round(y_base[..., i * c:(i + 1) * c] - mu).to(
+                torch.int32)
+
+        base = self.base_chain(lm, ls, symbols)
+        return dict(zip(("base_slices", "base_mu", "base_scale", "base_idx",
+                         "base_sym"), base), y=y, z_sym=z_sym, lm=lm, ls=ls)
+
     def synth_base(self, base_slices: List[torch.Tensor]):
         y = torch.cat(list(base_slices), dim=-1)
         return torch.clamp(self.model.synthesize_base(y), 0.0, 1.0), y
 
     # ---- progressive stage ----
-    def prog_params(self, base_slices, lm, ls):
-        """Progressive (mu, scale, mean_support) of every slice, stacked
-        [S, ...], and the unmasked CDF indexes (uint8)."""
+    def prog_params(self, base_slices, lm, ls, rem_ckpts=None, mus_b=None,
+                    scales_b=None):
+        """Quality-independent progressive (mu, scale, mean_support) of every
+        slice, stacked [S, ...], and the unmasked CDF indexes (uint8). With
+        checkpoint latents ``rem_ckpts`` (a ``rem`` model, which also needs
+        the base chain's mus and scales), the REM-chained params."""
+        d0 = self.model.division[0]
+        lm_e, ls_e = lm[..., d0:], ls[..., d0:]
+        if rem_ckpts:
+            mu_s, scale_s, msups = self.model.rem_chain_params(
+                base_slices, lm_e, ls_e, rem_ckpts, mus_b, scales_b)
+        else:
+            mu_s, scale_s, msups = self.model.prog_param_chain(
+                base_slices, lm_e, ls_e)
+        return mu_s, scale_s, msups, self.indexes(scale_s)
+
+    def prog_params_at(self, quality: float, base_slices, lm, ls, ckpt=None,
+                       mus_b=None, scales_b=None):
+        """Progressive params at one quality: the plain chain, REM-refined
+        at ``quality`` when a checkpoint latent is given (the support chain
+        stays unrefined), the variance mask of the refined scales and the
+        masked CDF indexes. Returns (mu_s, scale_s, mask, idx, msups)."""
         d0 = self.model.division[0]
         mu_s, scale_s, msups = self.model.prog_param_chain(
             base_slices, lm[..., d0:], ls[..., d0:])
-        return mu_s, scale_s, msups, self.indexes(scale_s)
+        if ckpt is not None:
+            mu_s, scale_s = self.model.refine_prog_params_all(
+                quality, mu_s, scale_s, ckpt, torch.stack(list(mus_b)),
+                torch.stack(list(scales_b)))
+        mask = prog_mask(scale_s, quality)
+        return mu_s, scale_s, mask, self.indexes(scale_s * mask), msups
 
-    def prog_sym(self, y: torch.Tensor, mu_s: torch.Tensor) -> torch.Tensor:
-        """Residual symbols [S, B, h, w, c] int32: round(y_prog - y_base -
-        mu) per slice."""
+    def prog_sym(self, y: torch.Tensor, mu_s: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Residual symbols [S, B, h, w, c] int32: round((y_prog - y_base -
+        mu) * mask) per slice (no mask: every element)."""
         m = self.model
         c, ns0, nprog = m.dim_chunk, m.ns0, m.ns1 - m.ns0
         r = torch.stack([a - b for a, b in zip(
             slices_of(y, ns0, ns0 + nprog, c), slices_of(y, 0, nprog, c))])
-        return torch.round(r - mu_s).to(torch.int32)
+        r = r - mu_s
+        if mask is not None:
+            r = r * mask
+        return torch.round(r).to(torch.int32)
 
-    def prog_reconstruct(self, sym_s, mu_s, msups, base_slices):
-        """One level: symbols [S,B,h,w,c] (untransmitted = 0) -> (x_hat,
-        y_prog): dequantize + LRP + merge of every slice, then g_s."""
-        y_prog = torch.cat([
+    def prog_latent(self, sym_s, mu_s, msups, base_slices) -> torch.Tensor:
+        """Symbols [S,B,h,w,c] (untransmitted = 0) -> y_prog: dequantize +
+        LRP + merge of every slice."""
+        return torch.cat([
             self.model.finish_prog_slice(sym_s[i].to(torch.float32) + mu_s[i],
                                          msups[i], base_slices[i], i)
             for i in range(sym_s.shape[0])], dim=-1)
+
+    def prog_reconstruct(self, sym_s, mu_s, msups, base_slices):
+        """One level: symbols -> (x_hat, y_prog) through g_s."""
+        y_prog = self.prog_latent(sym_s, mu_s, msups, base_slices)
         x = self.model.synthesize_prog(y_prog)
         return torch.clamp(x, 0.0, 1.0), y_prog
+
+    def prog_reconstruct_all(self, sym_s, sid, mu_s, msups, base_slices,
+                             n_levels: int):
+        """Levels 1..n_levels at once: level l keeps the symbols whose shell
+        id is below l. The levels fold into the batch axis (level-major)
+        through LRP and g_s. Returns (x_hat, y_prog), each [L, B, ...]."""
+        lvl = torch.arange(1, n_levels + 1, dtype=torch.int32,
+                           device=sid.device).reshape(-1, 1, 1, 1, 1, 1)
+        sym_l = sym_s[None] * (sid[None].to(torch.int32) < lvl)
+        b = sym_s.shape[1]
+
+        def fold(t):
+            return t.repeat((n_levels,) + (1,) * (t.dim() - 1))
+
+        slices = []
+        for i in range(sym_s.shape[0]):
+            y_hat = (sym_l[:, i].to(torch.float32) + mu_s[i][None]).reshape(
+                (n_levels * b,) + tuple(mu_s.shape[2:]))
+            slices.append(self.model.finish_prog_slice(
+                y_hat, fold(msups[i]), fold(base_slices[i]), i))
+        y_prog = torch.cat(slices, dim=-1)
+        x = torch.clamp(self.model.synthesize_prog(y_prog), 0.0, 1.0)
+        return (x.reshape((n_levels, b) + tuple(x.shape[1:])),
+                y_prog.reshape((n_levels, b) + tuple(y_prog.shape[1:])))
+
+    # ---- checkpoint latents (REM conditioning) ----
+    def checkpoint_latent(self, enc: Dict[str, Any], quality: float,
+                          checkpoint_rep=None) -> torch.Tensor:
+        """The decoded latent at a checkpoint quality from the encoder's
+        ``encode_base`` output: the base latent for quality <= 0, else
+        y_prog at that quality (REM-refined by ``checkpoint_rep``, the
+        previous checkpoint, when given). It skips g_s: only the latent
+        conditions the REMs."""
+        base = enc["base_slices"]
+        if quality <= 0:
+            return torch.cat(base, dim=-1)
+        mu_s, _, mask, _, msups = self.prog_params_at(
+            float(quality), base, enc["lm"], enc["ls"], checkpoint_rep,
+            enc["base_mu"], enc["base_scale"])
+        sym = self.prog_sym(enc["y"], mu_s, mask)
+        return self.prog_latent(sym, mu_s, msups, base)
+
+    @torch.no_grad()
+    def extract_checkpoint(self, x, quality: float,
+                           checkpoint_rep=None) -> torch.Tensor:
+        """The decoded latent of image x at a checkpoint quality, for REM
+        conditioning; chained checkpoints pass the previous one as
+        ``checkpoint_rep``. Device work only: the rANS round trip is
+        lossless, so the encoder's symbols determine the latent."""
+        ckpt = None if checkpoint_rep is None else self.as_input(
+            checkpoint_rep)
+        return self.checkpoint_latent(self.encode_base(self.as_input(x)),
+                                      quality, ckpt)
 
     # ---- z coding ----
     def encode_z(self, z_sym: np.ndarray) -> List[bytes]:

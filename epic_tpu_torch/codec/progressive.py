@@ -1,4 +1,5 @@
-"""Progressive single-bitstream codec: encode once, decode any level.
+"""Progressive single-bitstream codec: encode once, decode any level, or
+decode every level at once (``progressive_decode_all``).
 
 One image is coded as one rANS stream per batch item: the base slices in
 grid order, then every residual symbol stably sorted by its shell id, the
@@ -33,36 +34,44 @@ def _flat(t: torch.Tensor) -> np.ndarray:
 @torch.no_grad()
 def progressive_encode(codec: PICCodec, x,
                        q_list: Optional[Sequence[float]] = None,
+                       rems: bool = False, y_checkpoints=None,
                        timing: Optional[Dict[str, float]] = None,
                        state: Optional[Dict[str, Any]] = None):
     """Encode x [B,H,W,3] in [0,1] (H, W multiples of 64). Returns
     (bitstreams, [bits_z, bits_base, [bits per shell]]).
 
+    With ``rems`` (a ``rem`` model), the progressive params are the
+    REM-chained ones, conditioned on ``y_checkpoints``; when none are given,
+    the chained check-level latents are extracted from this encode's own
+    front, hyper and base work (bitwise ``codec.extract_checkpoint`` at
+    each level, the previous one as ``checkpoint_rep``) and put into
+    ``state["auto_ckpts"]``. The decoder needs the same latents.
+
     ``timing`` accumulates seconds under "device_s" (device work and its
     copies) and "rans_s" (host entropy coding). ``state``, if given, is
-    filled with the encoder's device tensors (base slices, progressive
-    params, symbols, shell ids) so a caller can check a decode against
-    them."""
+    filled with the encoder's device tensors (hyperprior, base slices and
+    params, progressive params, symbols, shell ids, checkpoint latents) so
+    a caller can check a decode against them."""
     q_list = list(q_list if q_list is not None else DEFAULT_Q_LIST)
     nq = len(q_list)
     t = time.perf_counter()
-    x = codec.as_input(x)
-    y, z_sym = codec.front(x)
-    lm, ls = codec.zhat_hyper(z_sym)
-    c = codec.model.dim_chunk
-    y_base = y[..., :codec.model.division[0]]
-
-    def symbols(i, mu, idx):
-        return torch.round(y_base[..., i * c:(i + 1) * c] - mu).to(
-            torch.int32)
-
-    base_slices, base_mu, base_scale, base_idx, base_sym = codec.base_chain(
-        lm, ls, symbols)
-    mu_s, scale_s, msups, idx_full = codec.prog_params(base_slices, lm, ls)
-    psym = codec.prog_sym(y, mu_s)
+    enc = codec.encode_base(codec.as_input(x))
+    auto_ckpts = None
+    if rems and y_checkpoints is None and getattr(codec.model,
+                                                  "check_levels", None):
+        y_checkpoints, prev = [], None
+        for cl in codec.model.check_levels:
+            prev = codec.checkpoint_latent(enc, cl, prev)
+            y_checkpoints.append(prev)
+        auto_ckpts = y_checkpoints
+    ckpts = _checkpoints(codec, y_checkpoints) if rems else None
+    mu_s, scale_s, msups, idx_full = codec.prog_params(
+        enc["base_slices"], enc["lm"], enc["ls"], ckpts, enc["base_mu"],
+        enc["base_scale"])
+    psym = codec.prog_sym(enc["y"], mu_s)
     sid = shell_ids(scale_s, q_list)
-    host = [z_sym.cpu().numpy(), _flat(torch.stack(base_sym)),
-            _flat(torch.stack(base_idx)), _flat(psym), _flat(idx_full),
+    host = [enc["z_sym"].cpu().numpy(), _flat(torch.stack(enc["base_sym"])),
+            _flat(torch.stack(enc["base_idx"])), _flat(psym), _flat(idx_full),
             _flat(sid)]
     t = add_time(timing, "device_s", t)
 
@@ -72,9 +81,11 @@ def progressive_encode(codec: PICCodec, x,
                                                      sid_np, nq)
     add_time(timing, "rans_s", t)
     if state is not None:
-        state.update(base_slices=base_slices, base_mu=base_mu,
-                     base_scale=base_scale, base_sym=base_sym, mu_s=mu_s,
-                     scale_s=scale_s, msups=msups, psym=psym, sid=sid)
+        state.update({k: enc[k] for k in ("lm", "ls", "base_slices",
+                                          "base_mu", "base_scale",
+                                          "base_sym")},
+                     mu_s=mu_s, scale_s=scale_s, msups=msups, psym=psym,
+                     sid=sid, auto_ckpts=auto_ckpts)
     bitstreams = {"layout": "stream", "q_list": q_list,
                   "shape": tuple(int(s) for s in z_np.shape[1:3]),
                   "z": z_strings, "y": blobs, "prefix": prefix}
@@ -85,23 +96,31 @@ def progressive_encode(codec: PICCodec, x,
     return bitstreams, [bits_z, bits_base, bits_prog]
 
 
+def _checkpoints(codec: PICCodec, y_checkpoints):
+    """Checkpoint latents as float32 tensors on the codec's device."""
+    return [codec.as_input(ck) for ck in y_checkpoints or ()]
+
+
 @torch.no_grad()
 def progressive_decode(codec: PICCodec, bitstreams: Dict[str, Any],
                        q_ind: int = 0, cache: Optional[Dict[str, Any]] = None,
+                       rems: bool = False, y_checkpoints=None,
                        timing: Optional[Dict[str, float]] = None
                        ) -> Dict[str, Any]:
     """Decode levels 0..q_ind (0 = base only). ``cache`` carries the
-    hyperprior, the base latent, the progressive entropy parameters, the
-    stream decoders and the symbol canvas from one call to the next, so a
-    walk up the levels decodes each shell once. ``timing`` accumulates
-    seconds under "device_s" and "rans_s". Returns {"x_hat", "y_hat",
-    "cache"}."""
+    hyperprior, the base latent and params, the progressive entropy
+    parameters, the stream decoders and the symbol canvas from one call to
+    the next, so a walk up the levels decodes each shell once. A stream
+    encoded with ``rems`` decodes with ``rems`` and the encoder's checkpoint
+    latents. ``timing`` accumulates seconds under "device_s" and "rans_s".
+    Returns {"x_hat", "y_hat", "cache"}."""
     cache = cache if cache is not None else {}
-    t = _decode_symbols(codec, bitstreams, q_ind, cache, timing)
+    t = _decode_symbols(codec, bitstreams, q_ind, cache, rems, y_checkpoints,
+                        timing)
     if q_ind == 0:
         x_hat, y_hat = codec.synth_base(cache["base"])
     else:
-        mu_s, msups, sid, _, _ = cache["entropy"]
+        mu_s, msups, _, _, _ = cache["entropy"]
         x_hat, y_hat = codec.prog_reconstruct(
             _canvas_to_device(codec, cache), mu_s, msups, cache["base"])
     codec.synchronize()
@@ -109,8 +128,33 @@ def progressive_decode(codec: PICCodec, bitstreams: Dict[str, Any],
     return {"x_hat": x_hat, "y_hat": y_hat, "cache": cache}
 
 
+@torch.no_grad()
+def progressive_decode_all(codec: PICCodec, bitstreams: Dict[str, Any],
+                           rems: bool = False, y_checkpoints=None,
+                           timing: Optional[Dict[str, float]] = None
+                           ) -> Dict[str, Any]:
+    """Decode the whole quality ladder at once: every shell through the
+    incremental decoder up to the top level, then one reconstruction of
+    all levels with the levels folded into the batch axis. Returns
+    {"x_hat": [1+Q, B, H, W, 3] (base first), "y_prog_top"}."""
+    nq = len(bitstreams["q_list"])
+    cache: Dict[str, Any] = {}
+    top = progressive_decode(codec, bitstreams, nq, cache, rems,
+                             y_checkpoints, timing)
+    t = time.perf_counter()
+    x_base, _ = codec.synth_base(cache["base"])
+    mu_s, msups, sid, _, _ = cache["entropy"]
+    x_prog, _ = codec.prog_reconstruct_all(_canvas_to_device(codec, cache),
+                                           sid, mu_s, msups, cache["base"],
+                                           nq)
+    x_hat = torch.cat([x_base[None], x_prog])
+    codec.synchronize()
+    add_time(timing, "device_s", t)
+    return {"x_hat": x_hat, "y_prog_top": top["y_hat"]}
+
+
 def _decode_symbols(codec: PICCodec, bitstreams: Dict[str, Any], q_ind: int,
-                    cache: Dict[str, Any],
+                    cache: Dict[str, Any], rems: bool, y_checkpoints,
                     timing: Optional[Dict[str, float]]) -> float:
     """Fill ``cache`` up to level q_ind: z and the hyperprior, the base
     chain (interleaved with the stream decoders), then the progressive
@@ -143,11 +187,13 @@ def _decode_symbols(codec: PICCodec, bitstreams: Dict[str, Any], q_ind: int,
             return torch.as_tensor(sym.reshape(idx_np.shape),
                                    device=codec.device)
 
-        cache["base"] = codec.base_chain(lm, ls, symbols)[0]
+        base, mus, scales, _, _ = codec.base_chain(lm, ls, symbols)
+        cache["base"], cache["base_params"] = base, (mus, scales)
 
     if q_ind > 0 and "entropy" not in cache:
-        mu_s, scale_s, msups, idx_full = codec.prog_params(cache["base"],
-                                                           lm, ls)
+        ckpts = _checkpoints(codec, y_checkpoints) if rems else None
+        mu_s, scale_s, msups, idx_full = codec.prog_params(
+            cache["base"], lm, ls, ckpts, *cache["base_params"])
         sid = shell_ids(scale_s, q_list)
         cache["entropy"] = (mu_s, msups, sid, _flat(idx_full), _flat(sid))
         cache["canvas"] = np.zeros(cache["entropy"][4].shape, np.int16)

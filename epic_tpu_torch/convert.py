@@ -1,5 +1,9 @@
 """Weights carried across from the JAX package.
 
+``load_checkpoint(directory)`` reads a committed checkpoint (``config.json``
+and ``last.npz``, as the JAX package's ``save_artifact`` writes them) with
+numpy alone and returns the port's model with its weights.
+
 ``from_jax_params(params, model)`` takes the JAX package's parameter tree
 (nested dicts of numpy arrays, as ``jax.device_get`` or a ``last.npz``
 gives them) and returns the port model's ``state_dict``. The port's module
@@ -10,6 +14,7 @@ and parameter names follow the flax tree, so each leaf maps by its path:
   (see ``ops.conv.ConvTranspose``);
 - dense kernels [in, out] -> [out, in];
 - stacked per-slice heads [S, 3, 3, in, out] -> [S, out, in, 3, 3];
+- stacked REM bank kernels [S, kh, kw, in, out] -> [S, out, in, kh, kw];
 - everything else (GDN's reparametrised beta/gamma, relative-bias tables,
   the entropy bottleneck's matrices, biases, factors and quantiles) as is.
 
@@ -19,7 +24,9 @@ Any array left over or missing, or of the wrong shape, raises.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import json
+import os
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -51,6 +58,8 @@ def _convert_leaf(path, t: torch.Tensor):
         else:
             t = t.permute(3, 2, 0, 1)
         name = "weight"
+    elif name == "kernel" and t.ndim == 5:
+        t, name = t.permute(0, 4, 3, 1, 2), "weight"
     elif name == "kernel" and t.ndim == 2:
         t, name = t.t(), "weight"
     elif name.startswith("Conv_") and name.endswith("_kernel"):
@@ -81,3 +90,54 @@ def from_jax_params(params: Dict[str, Any], model: nn.Module
         raise ValueError(f"arrays left over: {leftover}; "
                          f"parameters missing: {missing}")
     return out
+
+
+def _unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """{"a/b/c": leaf} -> {"a": {"b": {"c": leaf}}}."""
+    root: Dict[str, Any] = {}
+    for key, v in flat.items():
+        node = root
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return root
+
+
+def load_checkpoint(directory: str,
+                    config_overrides: Optional[Dict[str, Any]] = None,
+                    disable_rems_if_missing: bool = False):
+    """A committed checkpoint -> (model, config, step): the model named by
+    ``config.json`` (with ``config_overrides`` applied, e.g.
+    ``{"compute_dtype": "float32"}``) on the CPU, with every array of
+    ``last.npz`` loaded. Raises on the pre-stacking per-slice layout
+    (``cc_mean_0``, ``post_latent_0_0``), which the port does not convert.
+    A ``rem`` config whose checkpoint has no REM banks raises too, unless
+    ``disable_rems_if_missing`` asks for the plain ``pic`` model instead
+    (the JAX loader's default)."""
+    from .models import get_model
+
+    with open(os.path.join(directory, "config.json")) as f:
+        meta = json.load(f)
+    config = dict(meta["config"])
+    config.update(config_overrides or {})
+    name = config.pop("model", "pic")
+    with np.load(os.path.join(directory, "last.npz")) as z:
+        params = _unflatten({k: z[k] for k in z.files})
+    if "cc_mean_0" in params or "post_latent_0_0" in params:
+        raise ValueError(f"{directory}: per-slice (pre-stacking) parameter "
+                         "layout; the port loads only stacked checkpoints")
+    if name == "rem" and "post_latent_0" not in params:
+        if not disable_rems_if_missing:
+            raise ValueError(f"{directory}: a 'rem' config without REM "
+                             "banks (post_latent_*); pass "
+                             "disable_rems_if_missing=True to load it as "
+                             "'pic'")
+        name = "pic"
+        for k in ("check_levels", "mu_std", "rem_dimension"):
+            config.pop(k, None)
+    model = get_model(name, **{k: tuple(v) if isinstance(v, list) else v
+                               for k, v in config.items()})
+    model.load_state_dict(from_jax_params(params, model))
+    config["model"] = name
+    return model, config, meta.get("step", 0)

@@ -1,13 +1,15 @@
 """Where the GPU time of the port's main path goes.
 
 Runs the main-path workload of ``tools/workload.py`` (the one chip_smoke.py
-drives: full-width ``pic`` model, bf16, random weights from seed 0,
-synthetic 768x512 image, ``progressive_encode`` then ``progressive_decode``
-of levels 0..15) three times without the profiler and once under
-``torch.profiler``, and prints: the wall time of each sweep, the summed
-device-kernel time and the device's busy share (against the profiled wall
-and against the median unprofiled wall), device time by kernel family, and
-the top kernels by device time. Needs one CUDA device.
+drives: the full-width flagship ``rem`` model, bf16, random weights from
+seed 0, synthetic 768x512 image, ``progressive_encode`` with REMs, then
+``progressive_decode`` of levels 0..15 and ``progressive_decode_all``)
+three times without the profiler and once under ``torch.profiler``, and
+prints: the wall time of each sweep and of its three stages with their
+device / host rANS split, the summed device-kernel time and the device's
+busy share (against the profiled wall and against the median unprofiled
+wall), device time by kernel family, and the top kernels by device time.
+Needs one CUDA device.
 
     python3 -m epic_tpu_torch.tools.profile_sweep [--trace sweep.json]
 """
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 import epic_tpu_torch as et
-from epic_tpu_torch.tools.workload import decode_levels, full_width_codec, images
+from epic_tpu_torch.tools.workload import full_width_codec, images, sweep
 
 # (family, substrings of the lower-cased kernel name); the first match wins
 FAMILIES = (
@@ -63,23 +65,23 @@ def main() -> int:
     codec = full_width_codec(0)
     x, warm = images()
 
-    def sweep(img):
-        bs, _ = et.progressive_encode(codec, img)
-        for _ in decode_levels(codec, bs):
-            pass
+    def run(img, timing=None):
+        sweep(codec, img, timing)
         torch.cuda.synchronize()
 
-    sweep(warm)
-    walls = []
+    run(warm)
+    walls, stages = [], []
     for _ in range(3):
+        timing = {}
         t0 = time.perf_counter()
-        sweep(x)
+        run(x, timing)
         walls.append(time.perf_counter() - t0)
+        stages.append(timing)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        sweep(x)
+        run(x)
         wall = time.perf_counter() - t0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -100,9 +102,14 @@ def main() -> int:
         by_name[e.name][1] += 1
     nq = len(et.DEFAULT_Q_LIST)
     plain = float(np.median(walls))
-    print(f"sweep (encode + decode of levels 0..{nq}) without the profiler: "
-          f"walls {', '.join(f'{w * 1e3:.1f}' for w in walls)} ms, median "
+    print(f"sweep (encode with REMs + decode of levels 0..{nq} + decode_all)"
+          f" without the profiler: walls "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms, median "
           f"{plain * 1e3:.1f} ms")
+    for stage in ("encode", "decode", "decode_all"):
+        print(f"  {stage}: " + "; ".join(
+            f"device {t[stage]['device_s'] * 1e3:.1f} ms + host rANS "
+            f"{t[stage]['rans_s'] * 1e3:.1f} ms" for t in stages))
     print(f"profiled sweep: wall {wall * 1e3:.1f} ms; device kernels "
           f"{total_us / 1e3:.1f} ms in {len(kernels)} launches; device busy "
           f"{100 * total_us / 1e6 / wall:.1f}% of the profiled wall, "

@@ -1,7 +1,9 @@
 """Tests of the port that need a CUDA device: the GDN kernel against its
-plain version (max relative error 1e-5) at the main path's shapes, at
-ragged row counts and at every width it takes, rows whose bits do not
-depend on where they sit, and a tiny codec round trip through the kernel.
+plain version (max relative error 1e-5) at the main path's shapes (those
+of ``progressive_decode_all``, whose 15 levels fold into the batch,
+included), at ragged row counts and at every width it takes, rows whose
+bits do not depend on where they sit, and tiny ``pic`` and ``rem`` codec
+round trips through the kernel.
 They skip without a device. This file imports no JAX, so on a machine
 without it run it without the repository's conftest:
 
@@ -22,7 +24,8 @@ def _need_cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [98_304, 24_576, 6_144, 21])
+@pytest.mark.parametrize("rows", [1_474_560, 368_640, 92_160, 98_304,
+                                  24_576, 6_144, 21])
 @pytest.mark.parametrize("inverse", [False, True], ids=["gdn", "igdn"])
 def test_kernel_matches_plain(rows, inverse):
     _need_cuda()
@@ -127,3 +130,26 @@ def test_tiny_codec_roundtrip_through_the_kernel():
             _, y_e = codec.prog_reconstruct(st["psym"] * keep, st["mu_s"],
                                             st["msups"], st["base_slices"])
         assert torch.equal(out["y_hat"], y_e)
+
+
+@pytest.mark.cuda
+def test_tiny_rem_codec_through_the_kernel():
+    """REMs on: levels 0..15 one by one and all at once (the top level, the
+    base and the 15 folded levels: 9 IGDN launches)."""
+    _need_cuda()
+    model = et.get_model("rem", n=32, m=32, division=(16, 32), dim_chunk=8,
+                         param_net_widths=(24, 16),
+                         check_levels=(0.25, 0.75),
+                         rem_dimension="middle").init_weights(0)
+    codec = et.PICCodec(model)
+    x = np.random.default_rng(0).random((1, 64, 64, 3), dtype=np.float32)
+    st, cache = {}, {}
+    bs, _ = et.progressive_encode(codec, x, rems=True, state=st)
+    levels = [et.progressive_decode(codec, bs, lvl, cache, True,
+                                    st["auto_ckpts"])["x_hat"]
+              for lvl in range(len(bs["q_list"]) + 1)]
+    before = gdn.launches["igdn"]
+    out = et.progressive_decode_all(codec, bs, True, st["auto_ckpts"])
+    assert gdn.launches["igdn"] == before + 9
+    # float32: the folded batch may run other cuDNN algorithms
+    assert (out["x_hat"] - torch.stack(levels)).abs().max().item() <= 1e-4

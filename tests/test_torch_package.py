@@ -28,6 +28,10 @@ def test_imports_without_jax_flax_pil():
             "    sys.modules[name] = None\n"
             "import epic_tpu_torch, chip_smoke\n"
             "import epic_tpu_torch.codec, epic_tpu_torch.ops.gdn_kernel\n"
+            "import epic_tpu_torch.ops.rem, epic_tpu_torch.models.rem\n"
+            "import epic_tpu_torch.tools.workload\n"
+            "import epic_tpu_torch.tools.fold_diff\n"
+            "import epic_tpu_torch.tools.profile_sweep\n"
             "assert not [m for m in sys.modules if m.split('.')[0] in "
             f"{_BLOCKED!r} and sys.modules[m] is not None]\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
