@@ -10,15 +10,18 @@ Phases, one progress line each (flush=True):
  2. build: the GDN kernel (nvcc, sm_90a) and the host rANS library (g++),
     started together;
  3. kernels: fused GDN and inverse GDN against ``gdn_plain``, max relative
-    error <= 1e-5: at the main path's row counts (98,304 / 24,576 / 6,144
-    for a 768x512 image, and a ragged 21; for IGDN also the rows of
-    ``progressive_decode_all``, whose 15 levels fold into the batch:
-    1,474,560 / 368,640 / 92,160), C = 192, with CUDA-event times of the
+    error <= 1e-5: at the main path's row counts (393,216 / 98,304 /
+    24,576 / 6,144 for 768x512 images at batch 4 and 1, and a ragged 21;
+    for IGDN also the rows of ``progressive_decode_all``, whose 15 levels
+    fold into the batch: 5,898,240 at batch 4, 1,474,560 / 368,640 /
+    92,160), C = 192, with CUDA-event times of the
     kernel, of ``gdn_plain`` and of the product alone
     (``torch.matmul(x*x, gamma)``, cuBLAS SGEMM) beside the tensor-core and
     CUDA-core bounds; at ragged R 1 / 31 / 33 / 98,309; at every C the
-    kernel takes (R = 333); and 21 rows alone against the same rows at
-    offsets 0, 5 and 37 inside 98,304, bitwise;
+    kernel takes (R = 333); 21 rows alone against the same rows at
+    offsets 0, 5 and 37 inside 98,304, bitwise; and, as the pipeline
+    launches it, on a side stream and from two threads on two streams at
+    once, bitwise the main stream's;
  4. ``pic`` path: the full-width ``pic`` model (N=192, M=640, division
     (320, 640), dim_chunk 32, bf16 compute, random weights from a seed) on
     a seeded synthetic 768x512 image (``epic_tpu_torch/tools/workload.py``):
@@ -39,11 +42,27 @@ Phases, one progress line each (flush=True):
     bits twice and is within DECODE_ALL_ATOL of the per-level decode;
  6. reference: small float32 ``pic`` and ``rem`` models on the GPU against
     the same code on the CPU, entropy parameters (REM-refined for ``rem``)
-    within 1e-3.
+    within 1e-3;
+ 7. pipelined sweeps: the JAX package's ``bench.py`` loop on the flagship
+    ``rem`` model (``tools/workload.py``): its 24 synthetic 768x512 images
+    in batches of 4 through ``SweepPipeline`` with 2 workers on their own
+    CUDA streams (at most 2 sweeps in flight), encode with REMs, then
+    ``progressive_decode_all``. Each pipelined sweep's y / z streams,
+    prefix table, bits and x_hat (SHA-256 of its bytes) must equal the same
+    batch run serially; then ``bench_loop``: pipelined and sequential
+    img/s, overlap speedup, the host split, peak memory, and per-level
+    PSNR (finite) and MS-SSIM (in [0, 1]) of the 16 levels;
+ 8. random access on the flagship ``rem`` model at batch 1:
+    ``PICCodec.compress`` then ``decompress`` at qualities 0, 0.25, 0.75
+    and 10 (each check level conditioned on the one before, as in the
+    encode), y_hat bitwise the encoder's; the receiver-side chain of the
+    check-level streams bitwise equal to the encode's checkpoint latents;
+    ``dump_bitstreams`` / ``load_bitstreams`` byte for byte.
 
 Each path's kernel launches are counted from zero and must match its count
-per image (GDN 6 per encode; IGDN 3 per decoded level, 48 for levels
-0..15, 9 per ``decode_all``). Any failure raises and exits non-zero. The
+(GDN 6 per encode or ``compress``; IGDN 3 per decoded level, 48 for
+levels 0..15, 9 per ``decode_all``, 3 per ``decompress``; 15 per pipelined
+sweep of 4 images). Any failure raises and exits non-zero. The
 line before the last is the kernels' JSON record; the last line is the
 device record. Needs one CUDA device and no network; writes only into the
 package's build directories.
@@ -51,6 +70,7 @@ package's build directories.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -66,9 +86,12 @@ import torch
 # and TF32 on tensor cores in TFLOP/s, memory in TB/s.
 _PEAKS = {"SXM": (67.0, 495.0, 3.35), "PCIe": (51.0, 378.0, 2.0),
           "NVL": (60.0, 417.5, 3.9)}
-GDN_ROWS = (98_304, 24_576, 6_144, 21)
-# IGDN in progressive_decode_all: 15 levels folded into the batch
-IGDN_FOLDED_ROWS = (1_474_560, 368_640, 92_160)
+# g_a's layers at batch 4 (bench.py's batch) and 1; the IGDN of a decoded
+# level has the same rows
+GDN_ROWS = (393_216, 98_304, 24_576, 6_144, 21)
+# IGDN in progressive_decode_all: 15 levels folded into the batch, at
+# batch 4 (its top layer's 5,898,240 rows are 4.5 GB in float32) and 1
+IGDN_FOLDED_ROWS = (5_898_240, 1_474_560, 368_640, 92_160)
 GDN_RAGGED_ROWS = (1, 31, 33, 98_309)
 GDN_C = 192
 REL_TOL = 1e-5
@@ -204,6 +227,45 @@ def _check_gdn(label: str, x, gamma, beta, inverse: bool):
     return float(err.max()), rel
 
 
+def _check_streams(name: str, inverse: bool, rng, dev) -> None:
+    """As the pipeline launches it: on a side stream, and from two threads
+    on two streams at once (4 launches each, interleaved on the card), at
+    batch 4's 393,216 rows. Every result must equal the main stream's
+    bitwise, and that one gdn_plain within REL_TOL."""
+    from epic_tpu_torch.ops.gdn_kernel import gdn
+
+    x, g, b = _gdn_data(393_216, GDN_C, rng, dev)
+    _, rel = _check_gdn(f"{name} main stream", x, g, b, inverse)
+    want = gdn(x, g, b, inverse)
+    torch.cuda.synchronize()
+    outs, errors = [[], [], []], []
+
+    def launch(k, reps):
+        try:
+            s = torch.cuda.Stream()
+            with torch.cuda.stream(s):
+                outs[k] = [gdn(x, g, b, inverse) for _ in range(reps)]
+            s.synchronize()
+        except Exception as e:  # re-raised below, after the join
+            errors.append(e)
+
+    launch(0, 1)
+    threads = [threading.Thread(target=launch, args=(k, 4))
+               for k in (1, 2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    if not all(torch.equal(y, want) for out in outs for y in out):
+        raise AssertionError(f"{name}: a side-stream launch differs from "
+                             "the main stream's bits")
+    log(f"[3 kernels] {name} R=393216 on a side stream and from two threads "
+        f"on two streams at once (9 launches): bitwise the main stream's, "
+        f"max rel err against gdn_plain {rel:.2e}")
+
+
 def phase_kernels(smi: str):
     """GDN / IGDN against gdn_plain (max relative error <= 1e-5): at the main
     path's row counts (timed: kernel, plain, the product alone), at ragged
@@ -224,9 +286,13 @@ def phase_kernels(smi: str):
             x = torch.randn((rows, c), generator=gen, device=dev)
             abs_err, rel = _check_gdn(f"{name} R={rows}", x, gamma, beta,
                                       inverse)
-            ms = time_cuda(lambda: gdn(x, gamma, beta, inverse))
-            plain_ms = time_cuda(lambda: gdn_plain(x, gamma, beta, inverse))
-            product_ms = time_cuda(lambda: torch.matmul(x * x, gamma))
+            # fewer samples where one call takes milliseconds
+            reps, inner = (5, 2) if rows > 2_000_000 else (20, 10)
+            ms = time_cuda(lambda: gdn(x, gamma, beta, inverse), reps, inner)
+            plain_ms = time_cuda(lambda: gdn_plain(x, gamma, beta, inverse),
+                                 reps, inner)
+            product_ms = time_cuda(lambda: torch.matmul(x * x, gamma), reps,
+                                   inner)
             bound, by, cc_bound = gdn_bounds_ms(rows, c, peak)
             per_shape.append(dict(rows=rows, max_abs_err=abs_err,
                                   max_rel_err=rel, ms=ms, plain_ms=plain_ms,
@@ -256,7 +322,9 @@ def phase_kernels(smi: str):
         log(f"[3 kernels] {name} ragged R {GDN_RAGGED_ROWS} and C = 1.."
             f"{MAX_CHANNELS} at R=333: max rel err {worst:.2e}; 21 rows "
             "alone and at offsets 0/5/37 of 98,304 bitwise equal")
+        _check_streams(name, inverse, rng, dev)
         rows_out[name] = per_shape
+    torch.cuda.empty_cache()
     return rows_out
 
 
@@ -273,8 +341,7 @@ def _counted(fn):
 
 
 def _expect(tag: str, path: str, launches: dict, expect: dict) -> None:
-    log(f"[{tag}] {path}: kernel launches {launches} (expected per image "
-        f"{expect})")
+    log(f"[{tag}] {path}: kernel launches {launches} (expected {expect})")
     if launches != expect:
         raise AssertionError(f"{path}: launch counts {launches} != {expect}")
 
@@ -480,6 +547,138 @@ def phase_reference():
                                      f"CPU: {err}")
 
 
+def _digest(t: torch.Tensor) -> str:
+    """SHA-256 of a tensor's bytes."""
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()
+
+
+def _sweep_record(res) -> dict:
+    bs = res["bitstreams"]
+    return {"y": bs["y"], "z": bs["z"], "prefix": bs["prefix"].tolist(),
+            "bits": res["bits"], "x_hat": _digest(res["x_hat"])}
+
+
+def phase_pipeline(smi: str):
+    """bench.py's loop on the flagship rem model: 24 synthetic 768x512
+    images, batch 4, SweepPipeline with 2 workers (max_in_flight 2). Each
+    pipelined sweep (launches counted) must equal the same batch run
+    serially, bitwise; then bench_loop's img/s, overlap, split, peak memory
+    and per-level PSNR / MS-SSIM. Returns the pipelined launches."""
+    from epic_tpu_torch.tools import workload as wl
+    from epic_tpu_torch.utils.synthetic import to_f32
+
+    t0 = time.perf_counter()
+    codec = wl.full_width_codec(0)
+    batches = wl.bench_batches(wl.N_IMAGES, wl.BATCH)
+    dev = codec.device
+    serial = [_sweep_record(wl.serial_sweep(codec, to_f32(u8, dev)))
+              for u8 in batches[1:]]
+    torch.cuda.synchronize()
+    log(f"[7 pipeline] {len(serial)} serial sweeps of batch {wl.BATCH} "
+        f"(reference) {time.perf_counter() - t0:.1f} s")
+    got = {}
+    run, n = _counted(lambda: wl.pipelined_sweeps(
+        codec, batches[1:], wl.WORKERS,
+        on_result=lambda k, res: got.__setitem__(k, _sweep_record(res))))
+    log(f"[7 pipeline] pipelined run with x_hat digests: "
+        f"{run['elapsed_s']:.3f} s")
+    for k, want in enumerate(serial):
+        if got.get(k) != want:
+            diff = [f for f in want if got.get(k, {}).get(f) != want[f]]
+            raise AssertionError(f"pipelined sweep {k} differs from serial "
+                                 f"in {diff}")
+    nsw = len(serial)
+    _expect("7 pipeline", f"{nsw} pipelined sweeps", n,
+            {"gdn": 6 * nsw, "igdn": 9 * nsw})
+    log(f"[7 pipeline] {nsw} pipelined sweeps bitwise equal to serial "
+        "(y, z, prefix, bits, x_hat SHA-256)")
+    res = wl.bench_loop(codec, wl.N_IMAGES, wl.BATCH, wl.WORKERS)
+    sp = res["split"]
+    psnr, msssim = res["psnr"], res["msssim"]
+    log(f"[7 pipeline] bench_loop: {res['n_images']} images in "
+        f"{res['elapsed_s']:.3f} s = {res['img_per_s']:.3f} img/s pipelined,"
+        f" {sp['sequential_img_per_s']:.3f} img/s sequential (sweeps "
+        + ", ".join(f"{t:.3f}" for t in sp["sequential_sweeps_s"])
+        + f" s), overlap speedup {sp['overlap_speedup']:.3f}; peak memory "
+        f"{res['peak_mem_bytes'] / 2**30:.2f} GiB [{smi}]")
+    log("[7 pipeline] split: " + json.dumps(
+        {k: v for k, v in sp.items()}, default=float))
+    log("[7 pipeline] per level (random weights: says nothing about "
+        "compression): bpp " + " ".join(f"{v:.3f}" for v in res["bpp"])
+        + "; PSNR " + " ".join(f"{v:.3f}" for v in psnr)
+        + "; MS-SSIM " + " ".join(f"{v:.4f}" for v in msssim))
+    if not (len(psnr) == len(msssim) == 16 and np.isfinite(psnr).all()
+            and ((msssim >= 0) & (msssim <= 1)).all()):
+        raise AssertionError(f"per-level PSNR {psnr} / MS-SSIM {msssim}")
+    return n
+
+
+def phase_random_access():
+    """compress / decompress at one quality on the flagship rem model,
+    batch 1: y_hat bitwise the encoder's; the receiver-side chain of
+    check-level streams bitwise the encode's own checkpoint latents; the
+    container round trip byte for byte. Returns the launches."""
+    import epic_tpu_torch as et
+    from epic_tpu_torch.tools.workload import full_width_codec, images
+
+    codec = full_width_codec(0)
+    x, _ = images()
+    launches = {"gdn": 0, "igdn": 0}
+
+    def counted(tag, fn, expect):
+        t = time.perf_counter()
+        out, n = _counted(fn)
+        log(f"[8 random access] {tag}: {time.perf_counter() - t:.3f} s")
+        _expect("8 random access", tag, n, expect)
+        for k in launches:
+            launches[k] += n[k]
+        return out
+
+    st = {}
+    bs, _ = et.progressive_encode(codec, x, rems=True, state=st)
+    ckpts = dict(zip(codec.model.check_levels, st["auto_ckpts"]))
+    streams, rep = {}, None
+    for q in (0.0, 0.25, 0.75, 10.0):
+        # the check levels chain their latents, as the encode does
+        enc = counted(f"compress q={q}", lambda: codec.compress(
+            x, q, return_latents=True, checkpoint_rep=rep),
+            {"gdn": 6, "igdn": 0})
+        dec = counted(f"decompress q={q}", lambda: codec.decompress(
+            enc, checkpoint_rep=rep), {"gdn": 0, "igdn": 3})
+        y_enc = enc["y_hat"] if q > 0 else enc["y_hat_base"]
+        if not torch.equal(dec["y_hat"], y_enc):
+            raise AssertionError(f"q={q}: decompress y_hat differs from "
+                                 "compress's")
+        nbytes = sum(len(m) for sl in enc["strings"][0] for m in sl) + sum(
+            len(m) for m in enc["strings"][1])
+        log(f"[8 random access] q={q}: {nbytes * 8 / x[0, ..., 0].size:.4f}"
+            f" bpp, y_hat bitwise equal, x_hat {tuple(dec['x_hat'].shape)}")
+        if q in ckpts:
+            if not torch.equal(y_enc, ckpts[q]):
+                raise AssertionError(f"compress y_hat at {q} differs from "
+                                     "the encode's checkpoint latent")
+            streams[q], rep = enc, y_enc
+    rep = None
+    for q in codec.model.check_levels:
+        rep = codec.decompress(streams[q], checkpoint_rep=rep)["y_hat"]
+        if not torch.equal(rep, ckpts[q]):
+            raise AssertionError(f"receiver-side checkpoint latent at {q} "
+                                 "differs from the encoder's")
+    bs["ckpt_streams"] = [{k: streams[q][k] for k in (
+        "strings", "shape", "quality", "buffered", "io_chain")}
+        for q in codec.model.check_levels]
+    blob = et.dump_bitstreams(bs)
+    back = et.load_bitstreams(blob)
+    if et.dump_bitstreams(back) != blob or back["y"] != bs["y"]:
+        raise AssertionError("container round trip changed the bytes")
+    log(f"[8 random access] receiver chain over {codec.model.check_levels} "
+        "bitwise equal to the encoder's checkpoint latents; container "
+        f"({len(blob)} bytes with the check-level streams) round trip byte "
+        "for byte")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -492,6 +691,8 @@ def main() -> int:
     phase_pic_path()
     launches = phase_main_path()
     phase_reference()
+    launches["pipelined"] = phase_pipeline(smi)
+    launches["random_access"] = phase_random_access()
     kernels = []
     for name in ("gdn", "igdn"):
         top = per_shape[name][0]  # the largest call of the main path

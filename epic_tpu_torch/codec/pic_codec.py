@@ -53,9 +53,11 @@ class PICCodec:
         self.z_medians = torch.as_tensor(medians, device=self.device)
 
     def synchronize(self) -> None:
-        """Wait for the device (so that host clocks read finished work)."""
+        """Wait for the work queued on the calling thread's current stream
+        (so that host clocks read finished work), not for the whole
+        device: concurrent sweeps run on streams of their own."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     def as_input(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
@@ -68,9 +70,12 @@ class PICCodec:
         z = self.model.hyper_analysis(y)
         return y, torch.round(z - self.z_medians).to(torch.int32)
 
-    def zhat_hyper(self, z_sym: torch.Tensor):
-        """-> (latent_means, latent_scales) from decoded z symbols."""
+    def zhat_hyper(self, z_sym: torch.Tensor, base_only: bool = False):
+        """-> (latent_means, latent_scales) from decoded z symbols; with
+        ``base_only`` the base branch's alone (a base-only decode)."""
         z_hat = z_sym.to(torch.float32) + self.z_medians
+        if base_only:
+            return self.model.hyper_synthesis_base(z_hat)
         return self.model.hyper_synthesis(z_hat)
 
     def indexes(self, scale: torch.Tensor) -> torch.Tensor:
@@ -233,6 +238,94 @@ class PICCodec:
             checkpoint_rep)
         return self.checkpoint_latent(self.encode_base(self.as_input(x)),
                                       quality, ckpt)
+
+    # ---- random access: one quality, per-slice messages ----
+    @torch.no_grad()
+    def compress(self, x, quality: float = 0.0, return_latents: bool = False,
+                 checkpoint_rep=None) -> Dict[str, Any]:
+        """Code x [B,H,W,3] in [0,1] (H, W multiples of 64) at one quality:
+        z, the base slices and, for quality > 0, every progressive slice
+        with its variance mask at that quality (REM-refined by the
+        checkpoint latent ``checkpoint_rep`` when given). Returns
+        {"strings": [y_strings, z_strings] (y_strings: one list of B
+        messages per base slice, then per progressive slice), "shape",
+        "quality", "buffered": False, "io_chain": False}, the JAX package's
+        layout. With ``return_latents``: the decoder's latent, "y_hat_base"
+        at quality <= 0, else "y_hat" (bitwise ``extract_checkpoint``). Models without progressive
+        slices (WACNN, ``get_model("cnn")``) wait for ROADMAP A-4."""
+        enc = self.encode_base(self.as_input(x))
+        z_np = enc["z_sym"].cpu().numpy()
+        y_strings = self._encode_slices(torch.stack(enc["base_sym"]),
+                                        torch.stack(enc["base_idx"]))
+        out: Dict[str, Any] = {
+            "strings": [y_strings, self.encode_z(z_np)],
+            "shape": tuple(int(s) for s in z_np.shape[1:3]),
+            "quality": float(quality), "buffered": False, "io_chain": False}
+        if quality <= 0:
+            if return_latents:
+                out["y_hat_base"] = torch.cat(enc["base_slices"], dim=-1)
+            return out
+        ckpt = None if checkpoint_rep is None else self.as_input(
+            checkpoint_rep)
+        mu_s, _, mask, idx, msups = self.prog_params_at(
+            float(quality), enc["base_slices"], enc["lm"], enc["ls"], ckpt,
+            enc["base_mu"], enc["base_scale"])
+        sym = self.prog_sym(enc["y"], mu_s, mask)
+        y_strings.extend(self._encode_slices(sym, idx))
+        if return_latents:
+            out["y_hat"] = self.prog_latent(sym, mu_s, msups,
+                                            enc["base_slices"])
+        return out
+
+    @torch.no_grad()
+    def decompress(self, bitstream: Dict[str, Any],
+                   quality: Optional[float] = None,
+                   checkpoint_rep=None) -> Dict[str, Any]:
+        """The mirror of ``compress`` (at the stream's quality unless
+        ``quality`` is given, with the same ``checkpoint_rep``): returns
+        {"x_hat", "y_hat"}, y_hat the base latent at quality <= 0, else the
+        progressive one. A quality-0 decode runs the base hyper branch
+        only."""
+        quality = float(bitstream["quality"] if quality is None
+                        else quality)
+        y_strings, z_strings = bitstream["strings"]
+        z_sym = self.decode_z(z_strings, tuple(bitstream["shape"]))
+        lm, ls = self.zhat_hyper(torch.as_tensor(z_sym, device=self.device),
+                                 base_only=quality <= 0)
+
+        def symbols(i, mu, idx):
+            return self._decode_slice(y_strings[i], idx.cpu().numpy())
+
+        base, mus, scales, _, _ = self.base_chain(lm, ls, symbols)
+        if quality <= 0:
+            x_hat, y_hat = self.synth_base(base)
+            return {"x_hat": x_hat, "y_hat": y_hat}
+        ckpt = None if checkpoint_rep is None else self.as_input(
+            checkpoint_rep)
+        mu_s, _, _, idx, msups = self.prog_params_at(
+            quality, base, lm, ls, ckpt, mus, scales)
+        ns0 = self.model.ns0
+        sym = torch.stack([self._decode_slice(y_strings[ns0 + i], idx_i)
+                           for i, idx_i in enumerate(idx.cpu().numpy())])
+        x_hat, y_hat = self.prog_reconstruct(sym, mu_s, msups, base)
+        return {"x_hat": x_hat, "y_hat": y_hat}
+
+    def _encode_slices(self, sym: torch.Tensor,
+                       idx: torch.Tensor) -> List[List[bytes]]:
+        """Symbols and CDF indexes [S, B, h, w, c] -> per slice, B
+        messages."""
+        sym_np, idx_np = sym.cpu().numpy(), idx.cpu().numpy()
+        per = sym_np[0, 0].size
+        return [self.y_coder.encode_batch(s.reshape(-1), i.reshape(-1),
+                                          [per] * s.shape[0])
+                for s, i in zip(sym_np, idx_np)]
+
+    def _decode_slice(self, strings, idx: np.ndarray) -> torch.Tensor:
+        """One slice's B messages with host CDF indexes [B, h, w, c] ->
+        int32 device symbols of that shape."""
+        sym = self.y_coder.decode_batch(strings, idx.reshape(-1),
+                                        [idx[0].size] * idx.shape[0])
+        return torch.as_tensor(sym.reshape(idx.shape), device=self.device)
 
     # ---- z coding ----
     def encode_z(self, z_sym: np.ndarray) -> List[bytes]:

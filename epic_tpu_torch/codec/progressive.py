@@ -27,35 +27,60 @@ DEFAULT_Q_LIST = [0.01, 0.05, 0.1, 0.25, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0,
 
 def _flat(t: torch.Tensor) -> np.ndarray:
     """[S, B, h, w, c] device tensor -> host [B, S*h*w*c]."""
-    b = t.shape[1]
-    return np.ascontiguousarray(t.transpose(0, 1).reshape(b, -1).cpu().numpy())
+    return _flat_dev(t).cpu().numpy()
+
+
+def _flat_dev(t: torch.Tensor) -> torch.Tensor:
+    """[S, B, h, w, c] -> contiguous [B, S*h*w*c] on t's device."""
+    return t.transpose(0, 1).reshape(t.shape[1], -1)
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """Start t's copy to the host: into pinned memory without waiting for
+    it on a CUDA device (the caller waits on an event recorded after it);
+    on the CPU, t itself."""
+    if t.device.type != "cuda":
+        return t
+    buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return buf.copy_(t, non_blocking=True)
+
+
+# the encoder's device tensors that ``progressive_encode(state=...)`` hands
+# back (the decode checks read them)
+STATE_KEYS = ("lm", "ls", "base_slices", "base_mu", "base_scale", "base_sym",
+              "mu_s", "scale_s", "msups", "psym", "sid", "auto_ckpts")
 
 
 @torch.no_grad()
-def progressive_encode(codec: PICCodec, x,
-                       q_list: Optional[Sequence[float]] = None,
-                       rems: bool = False, y_checkpoints=None,
-                       timing: Optional[Dict[str, float]] = None,
-                       state: Optional[Dict[str, Any]] = None):
-    """Encode x [B,H,W,3] in [0,1] (H, W multiples of 64). Returns
-    (bitstreams, [bits_z, bits_base, [bits per shell]]).
+def progressive_encode_start(codec: PICCodec, x,
+                             q_list: Optional[Sequence[float]] = None,
+                             rems: bool = False, y_checkpoints=None,
+                             timing: Optional[Dict[str, float]] = None
+                             ) -> Dict[str, Any]:
+    """The encoder's device half: queues every device stage (front, hyper,
+    base chain, checkpoint latents, progressive params, symbols, shell
+    ids) on the current stream and starts the copies of the six host
+    arrays (z symbols; base symbols and CDF indexes; progressive symbols,
+    CDF indexes and shell ids) into pinned host buffers, then records an
+    event. Nothing waits for the device: between this call and
+    ``progressive_encode_finish`` the device runs on. ``timing`` gets the
+    dispatch seconds under "device_s".
 
     With ``rems`` (a ``rem`` model), the progressive params are the
     REM-chained ones, conditioned on ``y_checkpoints``; when none are given,
     the chained check-level latents are extracted from this encode's own
     front, hyper and base work (bitwise ``codec.extract_checkpoint`` at
-    each level, the previous one as ``checkpoint_rep``) and put into
-    ``state["auto_ckpts"]``. The decoder needs the same latents.
+    each level, the previous one as ``checkpoint_rep``) and returned under
+    "auto_ckpts". The decoder needs the same latents.
 
-    ``timing`` accumulates seconds under "device_s" (device work and its
-    copies) and "rans_s" (host entropy coding). ``state``, if given, is
-    filled with the encoder's device tensors (hyperprior, base slices and
-    params, progressive params, symbols, shell ids, checkpoint latents) so
-    a caller can check a decode against them."""
+    Returns the state that ``progressive_encode_finish`` consumes: "x" (the
+    input on the device), "q_list", "auto_ckpts", "event" (None on the
+    CPU), "host" (the six host buffers) and the encoder's device tensors
+    (``STATE_KEYS``)."""
     q_list = list(q_list if q_list is not None else DEFAULT_Q_LIST)
-    nq = len(q_list)
     t = time.perf_counter()
-    enc = codec.encode_base(codec.as_input(x))
+    x = codec.as_input(x)
+    enc = codec.encode_base(x)
     auto_ckpts = None
     if rems and y_checkpoints is None and getattr(codec.model,
                                                   "check_levels", None):
@@ -70,23 +95,40 @@ def progressive_encode(codec: PICCodec, x,
         enc["base_scale"])
     psym = codec.prog_sym(enc["y"], mu_s)
     sid = shell_ids(scale_s, q_list)
-    host = [enc["z_sym"].cpu().numpy(), _flat(torch.stack(enc["base_sym"])),
-            _flat(torch.stack(enc["base_idx"])), _flat(psym), _flat(idx_full),
-            _flat(sid)]
-    t = add_time(timing, "device_s", t)
+    host = [_to_host(a) for a in (
+        enc["z_sym"], _flat_dev(torch.stack(enc["base_sym"])),
+        _flat_dev(torch.stack(enc["base_idx"])), _flat_dev(psym),
+        _flat_dev(idx_full), _flat_dev(sid))]
+    event = None
+    if x.device.type == "cuda":
+        event = torch.cuda.Event()
+        event.record()
+    add_time(timing, "device_s", t)
+    st = {k: enc[k] for k in STATE_KEYS if k in enc}
+    st.update(mu_s=mu_s, scale_s=scale_s, msups=msups, psym=psym, sid=sid,
+              auto_ckpts=auto_ckpts, x=x, q_list=q_list, event=event,
+              host=host)
+    return st
 
-    z_np, bsym, bidx, p_np, pidx, sid_np = host
+
+def progressive_encode_finish(codec: PICCodec, st: Dict[str, Any],
+                              timing: Optional[Dict[str, float]] = None):
+    """The encoder's host half: waits for ``st["event"]`` alone (not for
+    the device or a stream), then rANS-codes z and the one shell-sorted
+    stream per image. ``timing`` gets the wait under "device_s" and the
+    coding under "rans_s". Returns (bitstreams, [bits_z, bits_base,
+    [bits per shell]])."""
+    t = time.perf_counter()
+    if st["event"] is not None:
+        st["event"].synchronize()
+    z_np, bsym, bidx, p_np, pidx, sid_np = (a.numpy() for a in st["host"])
+    t = add_time(timing, "device_s", t)
+    nq = len(st["q_list"])
     z_strings = codec.encode_z(z_np)
     blobs, prefix = codec.y_coder.encode_shell_batch(bsym, bidx, p_np, pidx,
                                                      sid_np, nq)
     add_time(timing, "rans_s", t)
-    if state is not None:
-        state.update({k: enc[k] for k in ("lm", "ls", "base_slices",
-                                          "base_mu", "base_scale",
-                                          "base_sym")},
-                     mu_s=mu_s, scale_s=scale_s, msups=msups, psym=psym,
-                     sid=sid, auto_ckpts=auto_ckpts)
-    bitstreams = {"layout": "stream", "q_list": q_list,
+    bitstreams = {"layout": "stream", "q_list": st["q_list"],
                   "shape": tuple(int(s) for s in z_np.shape[1:3]),
                   "z": z_strings, "y": blobs, "prefix": prefix}
     bits_z = sum(len(s) for s in z_strings) * 8.0
@@ -94,6 +136,28 @@ def progressive_encode(codec: PICCodec, x,
     bits_prog = [float((prefix[:, j + 1] - prefix[:, j]).sum()) * 8.0
                  for j in range(nq)]
     return bitstreams, [bits_z, bits_base, bits_prog]
+
+
+def progressive_encode(codec: PICCodec, x,
+                       q_list: Optional[Sequence[float]] = None,
+                       rems: bool = False, y_checkpoints=None,
+                       timing: Optional[Dict[str, float]] = None,
+                       state: Optional[Dict[str, Any]] = None):
+    """Encode x [B,H,W,3] in [0,1] (H, W multiples of 64):
+    ``progressive_encode_start`` then ``progressive_encode_finish``.
+    Returns (bitstreams, [bits_z, bits_base, [bits per shell]]).
+
+    ``timing`` accumulates seconds under "device_s" (device work and its
+    copies) and "rans_s" (host entropy coding). ``state``, if given, is
+    filled with the encoder's device tensors (``STATE_KEYS``: hyperprior,
+    base slices and params, progressive params, symbols, shell ids,
+    checkpoint latents) so a caller can check a decode against them."""
+    st = progressive_encode_start(codec, x, q_list, rems, y_checkpoints,
+                                  timing)
+    out = progressive_encode_finish(codec, st, timing)
+    if state is not None:
+        state.update({k: st[k] for k in STATE_KEYS})
+    return out
 
 
 def _checkpoints(codec: PICCodec, y_checkpoints):

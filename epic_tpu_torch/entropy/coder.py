@@ -3,12 +3,17 @@
 Same surface and the same bytes as the JAX package's coder: symbols and
 CDF indexes arrive as packed integer arrays (one device-to-host copy per
 stage), and batched calls fan out over host threads inside one C call.
+A coder is stateless per call apart from ``stats``, which is updated under
+a lock, so one coder serves concurrent sweeps (``codec/pipeline.py``);
+the C calls release the GIL.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import threading
+import time
 from typing import Sequence
 
 import numpy as np
@@ -67,7 +72,14 @@ def pmf_to_quantized_cdf_batch(pmf: np.ndarray, pmf_lengths: np.ndarray,
 class RansCoder:
     """Stateless encoder/decoder over a fixed set of quantized CDF tables
     (``cdfs`` int32 [num_tables, Lmax], per-row ``cdf_lengths`` and symbol
-    ``offsets``)."""
+    ``offsets``).
+
+    ``stats`` accumulates the batched calls' wall seconds, calls and
+    symbols coded (``encode_s``, ``decode_s``, ``encode_calls``,
+    ``decode_calls``, ``encode_syms``, ``decode_syms``); reset it with
+    ``stats.update(...)``. ``nthreads`` (default: the core count, at most
+    16) is the C threads of each batched call, so W concurrent callers
+    start up to W x nthreads threads."""
 
     def __init__(self, cdfs, cdf_lengths, offsets,
                  precision: int = _DEFAULT_PRECISION,
@@ -80,6 +92,18 @@ class RansCoder:
         self.precision = int(precision)
         self.nthreads = int(nthreads or min(16, os.cpu_count() or 1))
         self._lib = load_library()
+        self.stats = {"encode_s": 0.0, "decode_s": 0.0, "encode_calls": 0,
+                      "decode_calls": 0, "encode_syms": 0, "decode_syms": 0}
+        self._stats_lock = threading.Lock()
+
+    def _stat_add(self, op: str, t_start: float, syms: int) -> None:
+        """Add one batched ``op`` ("encode" or "decode") call that started
+        at ``t_start`` and coded ``syms`` symbols."""
+        dt = time.perf_counter() - t_start
+        with self._stats_lock:
+            self.stats[f"{op}_s"] += dt
+            self.stats[f"{op}_calls"] += 1
+            self.stats[f"{op}_syms"] += syms
 
     def _tables(self):
         return (_ptr(self.cdfs, ctypes.c_uint32), self.cdfs.shape[1],
@@ -123,6 +147,7 @@ class RansCoder:
                      msg_lengths: Sequence[int]) -> list[bytes]:
         """Encode M messages packed back to back; msg_lengths[i] is message
         i's symbol count. One C call, messages in parallel."""
+        t_start = time.perf_counter()
         symbols = _ascontig(symbols, np.int32).ravel()
         indexes = _ascontig(indexes, np.int32).ravel()
         lengths = _ascontig(msg_lengths, np.int64).ravel()
@@ -140,12 +165,15 @@ class RansCoder:
             _ptr(out_lengths, ctypes.c_int64), self.nthreads)
         if rc != 0:
             raise RuntimeError("batched rANS encode failed")
-        return [out[i * cap:i * cap + int(out_lengths[i])].tobytes()
-                for i in range(m)]
+        res = [out[i * cap:i * cap + int(out_lengths[i])].tobytes()
+               for i in range(m)]
+        self._stat_add("encode", t_start, symbols.size)
+        return res
 
     def decode_batch(self, datas: Sequence[bytes], indexes,
                      msg_lengths: Sequence[int]) -> np.ndarray:
         """Decode M messages; returns one packed int32 symbol buffer."""
+        t_start = time.perf_counter()
         indexes = _ascontig(indexes, np.int32).ravel()
         lengths = _ascontig(msg_lengths, np.int64).ravel()
         m = lengths.size
@@ -165,6 +193,7 @@ class RansCoder:
             _ptr(out, ctypes.c_int32), self.nthreads)
         if rc != 0:
             raise RuntimeError(f"batched rANS decode failed with code {rc}")
+        self._stat_add("decode", t_start, out.size)
         return out
 
     def encode_seg_batch(self, symbols, indexes, msg_lengths: Sequence[int],
@@ -173,6 +202,7 @@ class RansCoder:
         cumulative segment boundaries ``seg_ends`` [M, nseg]; returns
         (blobs, prefix [M, nseg]), the bytes a decoder needs to decode
         symbols [0, seg_ends[i, k]) of message i."""
+        t_start = time.perf_counter()
         symbols = _ascontig(symbols, np.int32).ravel()
         indexes = _ascontig(indexes, np.int32).ravel()
         lengths = _ascontig(msg_lengths, np.int64).ravel()
@@ -197,8 +227,10 @@ class RansCoder:
             self.nthreads)
         if rc != 0:
             raise RuntimeError("segmented rANS encode failed")
-        return ([out[i * cap:i * cap + int(out_lengths[i])].tobytes()
-                 for i in range(m)], prefix)
+        res = [out[i * cap:i * cap + int(out_lengths[i])].tobytes()
+               for i in range(m)]
+        self._stat_add("encode", t_start, symbols.size)
+        return res, prefix
 
     def encode_shell_batch(self, base_sym, base_idx, prog_sym, prog_idx,
                            sid, nq: int) -> tuple[list[bytes], np.ndarray]:
@@ -209,6 +241,8 @@ class RansCoder:
         base_sym [M, nb] int8/16/32, base_idx [M, nb] uint8-valued,
         prog_sym [M, np] int8/16/32, prog_idx [M, np], sid [M, np] int8
         (0..nq; nq = never coded). Returns (blobs, prefix [M, nq+1])."""
+        t_start = time.perf_counter()
+
         def _sym(a):
             a = np.ascontiguousarray(a)
             return a if a.dtype in (np.int8, np.int16, np.int32) else \
@@ -237,8 +271,11 @@ class RansCoder:
             self.nthreads)
         if rc != 0:
             raise RuntimeError(f"shell rANS encode failed ({rc})")
-        return ([out[i * cap:i * cap + int(out_lengths[i])].tobytes()
-                 for i in range(m)], prefix)
+        res = [out[i * cap:i * cap + int(out_lengths[i])].tobytes()
+               for i in range(m)]
+        self._stat_add("encode", t_start,
+                       m * nb + int(np.count_nonzero(sid < nq)))
+        return res, prefix
 
     def decode_shell_streams(self, streams: Sequence["StreamDecoder"],
                              idx_flat, sid, j0: int, j1: int, nq: int,
@@ -247,6 +284,7 @@ class RansCoder:
         their original flat positions into ``canvas`` (int16 [M, np],
         mutated in place). Returns the (positions, values) of symbols
         outside int16, which the canvas cannot hold, or None."""
+        t_start = time.perf_counter()
         idx_flat = _ascontig(idx_flat, np.uint8)
         sid = _ascontig(sid, np.int8)
         m, np_ = sid.shape
@@ -264,12 +302,15 @@ class RansCoder:
             _ptr(ovf_val, ctypes.c_int32), cap, self.nthreads)
         if rc < 0:
             raise RuntimeError(f"shell stream decode failed ({rc})")
+        self._stat_add("decode", t_start,
+                       int(np.count_nonzero((sid >= j0) & (sid < j1))))
         return (ovf_pos[:rc].copy(), ovf_val[:rc].copy()) if rc else None
 
     def decode_streams(self, streams: Sequence["StreamDecoder"], indexes,
                        msg_lengths: Sequence[int]) -> np.ndarray:
         """Advance M stream decoders by one chunk each (chunk i covers
         msg_lengths[i] symbols of the packed ``indexes``)."""
+        t_start = time.perf_counter()
         indexes = _ascontig(indexes, np.int32).ravel()
         lengths = _ascontig(msg_lengths, np.int64).ravel()
         m = lengths.size
@@ -286,6 +327,7 @@ class RansCoder:
             *self._tables(), _ptr(out, ctypes.c_int32), self.nthreads)
         if rc != 0:
             raise RuntimeError(f"batched stream decode failed ({rc})")
+        self._stat_add("decode", t_start, out.size)
         return out
 
 

@@ -123,6 +123,11 @@ class VarianceMaskingPIC(nn.Module):
                             self.h_scale_s_1(z_hat)], dim=-1)
         return means, scales
 
+    def hyper_synthesis_base(self, z_hat: torch.Tensor):
+        """The base branch only, [B,h,w,division[0]] each: all a base-only
+        decode needs."""
+        return self.h_mean_s_0(z_hat), self.h_scale_s_0(z_hat)
+
     def synthesize_base(self, y_hat_base: torch.Tensor) -> torch.Tensor:
         return self.g_s_0(y_hat_base)
 

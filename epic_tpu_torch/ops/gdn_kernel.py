@@ -8,7 +8,8 @@ hand-written kernel (tensor cores, mma.sync 3xTF32), or it raises. The
 kernel is compiled by ``nvcc`` from the repository's source at first use
 into ``epic_tpu_torch/_build/`` and bound with ctypes once; a launch costs
 no more host work than the checks, the output allocation and the ctypes
-call. ``gdn.launches`` counts kernel launches by kind.
+call. ``gdn.launches`` counts kernel launches by kind, under a lock: the
+sweep pipeline launches from several threads at once.
 """
 
 from __future__ import annotations
@@ -114,8 +115,21 @@ def gdn(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                               torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"gdn kernel launch failed: CUDA error {rc}")
-    gdn.launches["igdn" if inverse else "gdn"] += 1
+    gdn.launches.add("igdn" if inverse else "gdn")
     return y
 
 
-gdn.launches = {"gdn": 0, "igdn": 0}
+class LaunchCounts(dict):
+    """Kernel launches by kind; ``add`` increments under a lock, so
+    launches from concurrent threads are all counted."""
+
+    def __init__(self, *kinds: str):
+        super().__init__((k, 0) for k in kinds)
+        self._lock = threading.Lock()
+
+    def add(self, kind: str) -> None:
+        with self._lock:
+            self[kind] += 1
+
+
+gdn.launches = LaunchCounts("gdn", "igdn")

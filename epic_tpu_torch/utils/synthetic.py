@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def synthetic_image(h: int = 512, w: int = 768, seed: int = 0) -> np.ndarray:
@@ -16,3 +17,27 @@ def synthetic_image(h: int = 512, w: int = 768, seed: int = 0) -> np.ndarray:
                    axis=-1)
     img += 0.05 * rng.standard_normal(img.shape)
     return np.clip(img, 0, 1).astype(np.float32)[None]
+
+
+def synth_images(n: int, rng: np.random.Generator) -> list:
+    """The JAX package's ``bench.py`` synthetic images: n uint8 512x768x3
+    arrays, waves whose periods vary with the image index plus N(0, 0.05)
+    noise drawn from ``rng`` (``bench.py`` passes ``default_rng(0)``)."""
+    out = []
+    yy, xx = np.mgrid[0:512, 0:768].astype(np.float32)
+    for i in range(n):
+        base = np.stack([
+            0.5 + 0.5 * np.sin(xx / (31 + 7 * i)) * np.cos(yy / 29),
+            0.5 + 0.4 * np.cos(xx / 23 + yy / (37 + 3 * i)),
+            (xx + yy) / 1280.0,
+        ], -1)
+        f = np.clip(base + rng.normal(0, 0.05, base.shape), 0, 1)
+        out.append(np.round(f * 255.0).astype(np.uint8))
+    return out
+
+
+def to_f32(u8, device) -> torch.Tensor:
+    """uint8 images -> float32 in [0, 1] on ``device``: uploaded as one
+    byte a pixel and divided by 255 there (the same IEEE float32 values as
+    ``u8.astype(np.float32) / 255.0`` on the host)."""
+    return torch.as_tensor(u8, device=device).to(torch.float32) / 255.0
