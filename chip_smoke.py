@@ -7,11 +7,12 @@ then drives the main path once at full width and checks what comes out.
 Phases, one progress line each (flush=True):
  1. environment: torch / CUDA versions, the card's name and power limit,
     nvcc's version;
- 2. build: the GDN kernel (nvcc, sm_90a) and the host rANS library (g++),
-    started together;
+ 2. build: the GDN kernel and its backward (nvcc, sm_90a) and the host
+    rANS library (g++), started together;
  3. kernels: fused GDN and inverse GDN against ``gdn_plain``, max relative
     error <= 1e-5: at the main path's row counts (393,216 / 98,304 /
-    24,576 / 6,144 for 768x512 images at batch 4 and 1, and a ragged 21;
+    24,576 / 6,144 for 768x512 images at batch 4 and 1, a ragged 21, and
+    262,144 / 65,536 / 16,384 for a training step at batch 16, patch 256;
     for IGDN also the rows of ``progressive_decode_all``, whose 15 levels
     fold into the batch: 5,898,240 at batch 4, 1,474,560 / 368,640 /
     92,160), C = 192, with CUDA-event times of the
@@ -22,6 +23,13 @@ Phases, one progress line each (flush=True):
     offsets 0, 5 and 37 inside 98,304, bitwise; and, as the pipeline
     launches it, on a side stream and from two threads on two streams at
     once, bitwise the main stream's;
+ 3b. backward kernel: GDN's and IGDN's backward (``gdn_backward_rows``: dx
+    and u) against ``gdn_backward_rows_plain``, and ``gdn_backward``'s
+    (dx, dgamma, dbeta) against autograd through ``gdn_plain``, norm-wise
+    (max abs error over max abs value): dx and u within 1e-5, dgamma and
+    dbeta within 1e-4; at a training step's rows (262,144 / 65,536 /
+    16,384, timed beside the plain version and the bound), at ragged R,
+    at every C (R = 333), and on a side stream bitwise;
  4. ``pic`` path: the full-width ``pic`` model (N=192, M=640, division
     (320, 640), dim_chunk 32, bf16 compute, random weights from a seed) on
     a seeded synthetic 768x512 image (``epic_tpu_torch/tools/workload.py``):
@@ -57,15 +65,27 @@ Phases, one progress line each (flush=True):
     and 10 (each check level conditioned on the one before, as in the
     encode), y_hat bitwise the encoder's; the receiver-side chain of the
     check-level streams bitwise equal to the encode's checkpoint latents;
-    ``dump_bitstreams`` / ``load_bitstreams`` byte for byte.
+    ``dump_bitstreams`` / ``load_bitstreams`` byte for byte;
+ 9. training at flagship width (``cli.train_device``'s curriculum, bf16,
+    batch 16, patch 256, on ``bench.py``'s synthetic images): each stage's
+    steps on one fixed batch through ``make_train_step`` (forward and
+    backward launches per step, finite losses, frozen parameters bitwise
+    unchanged, first_train's loss falling over its first three steps);
+    then ``train_device.run`` with 4 / 3 / 3 / 3 steps, a validation and a
+    checkpoint at each stage's end (in a temporary directory), launches
+    counted over the whole run, steps/s and peak memory per stage; the
+    rems checkpoint loaded by ``load_checkpoint`` bitwise the trained
+    weights, and an encode / decode of levels 0..15 with it bitwise
+    between encoder and decoder.
 
 Each path's kernel launches are counted from zero and must match its count
 (GDN 6 per encode or ``compress``; IGDN 3 per decoded level, 48 for
 levels 0..15, 9 per ``decode_all``, 3 per ``decompress``; 15 per pipelined
-sweep of 4 images). Any failure raises and exits non-zero. The
+sweep of 4 images; the training launches in phase 9; no inference path
+launches the backward kernel). Any failure raises and exits non-zero. The
 line before the last is the kernels' JSON record; the last line is the
 device record. Needs one CUDA device and no network; writes only into the
-package's build directories.
+package's build directories and a temporary directory it removes.
 """
 
 from __future__ import annotations
@@ -87,14 +107,23 @@ import torch
 _PEAKS = {"SXM": (67.0, 495.0, 3.35), "PCIe": (51.0, 378.0, 2.0),
           "NVL": (60.0, 417.5, 3.9)}
 # g_a's layers at batch 4 (bench.py's batch) and 1; the IGDN of a decoded
-# level has the same rows
-GDN_ROWS = (393_216, 98_304, 24_576, 6_144, 21)
+# level has the same rows; then a training step's (batch 16, patch 256)
+GDN_ROWS = (393_216, 98_304, 24_576, 6_144, 21, 262_144, 65_536, 16_384)
 # IGDN in progressive_decode_all: 15 levels folded into the batch, at
 # batch 4 (its top layer's 5,898,240 rows are 4.5 GB in float32) and 1
 IGDN_FOLDED_ROWS = (5_898_240, 1_474_560, 368_640, 92_160)
 GDN_RAGGED_ROWS = (1, 31, 33, 98_309)
 GDN_C = 192
 REL_TOL = 1e-5
+# the backward kernel at a flagship first_train step (batch 16, patch 256):
+# g_a's GDNs and g_s's IGDNs run at these rows
+GDN_BWD_ROWS = (262_144, 65_536, 16_384)
+# dx and u of the backward kernel against the plain closed form, norm-wise
+# (max abs error over max abs value)
+BWD_REL_TOL = 1e-5
+# dgamma and dbeta against autograd: sums over every row, reduced by cuBLAS
+# from the kernel's u and by autograd from its own
+WGRAD_REL_TOL = 1e-4
 # progressive_decode_all against the per-level decode, x_hat in [0, 1]. cuDNN
 # picks other convolution kernels for the folded batch (15 levels) than for
 # batch 1, and they round bf16 work differently; with cuDNN off the two
@@ -151,6 +180,8 @@ def phase_build():
 
     threads = [threading.Thread(target=run, args=a) for a in
                (("gdn.cu (nvcc)", gdn_kernel.build_library),
+                ("gdn_bwd.cu (nvcc)", lambda: gdn_kernel.build_library(
+                    gdn_kernel.BACKWARD_SOURCE)),
                 ("epic_rans.cpp (g++)", rans_build.build_library))]
     for t in threads:
         t.start()
@@ -159,12 +190,13 @@ def phase_build():
     if errors:
         raise errors[0]
     log("[2 build] " + ", ".join(f"{k} {v:.1f} s" for k, v in results.items()))
-    ptxas = os.path.join(os.path.dirname(gdn_kernel.SOURCE), "..", "_build",
-                         "gdn_ptxas.txt")
-    if os.path.exists(ptxas):
-        for line in open(ptxas).read().splitlines():
-            if "registers" in line or "spill" in line:
-                log("[2 build] ptxas: " + line.strip())
+    for stem in ("gdn", "gdn_bwd"):
+        ptxas = os.path.join(os.path.dirname(gdn_kernel.SOURCE), "..",
+                             "_build", f"{stem}_ptxas.txt")
+        if os.path.exists(ptxas):
+            for line in open(ptxas).read().splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"[2 build] ptxas {stem}: " + line.strip())
 
 
 def time_cuda(fn, reps: int = 20, inner: int = 10) -> float:
@@ -328,15 +360,145 @@ def phase_kernels(smi: str):
     return rows_out
 
 
-def _counted(fn):
-    """Run fn with the kernel launch counts set to 0 just before; returns
-    (fn's result, the counts just after)."""
-    from epic_tpu_torch.ops.gdn_kernel import gdn
+def gdn_bwd_bounds_ms(rows: int, c: int, peak: tuple):
+    """Least time for the backward kernel over [rows, c]: x and g read once,
+    dx and u written once, gamma and beta read once (16RC + 4C^2 + 4C
+    bytes) at the memory rate, against two products of 2RC^2 in 3xTF32 at
+    the TF32 peak. Returns (ms, what binds it)."""
+    _, tf32, bw = peak
+    t_bytes = 4.0 * (4 * rows * c + c * c + c) / (bw * 1e12)
+    t_ops = 2 * 3 * 2.0 * rows * c * c / (tf32 * 1e12)
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want| (norm-wise: dx sums terms of both
+    signs and may cancel to 0, where an elementwise ratio means nothing)."""
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+
+
+def _check_gdn_bwd(label: str, x, gamma, beta, g, inverse: bool,
+                   autograd: bool = True):
+    """The backward kernel's (dx, u) against gdn_backward_rows_plain, and
+    gdn_backward's (dx, dgamma, dbeta) against autograd through gdn_plain.
+    dx and u within BWD_REL_TOL of the plain closed form; against autograd
+    dx within BWD_REL_TOL and dgamma / dbeta within WGRAD_REL_TOL (sums over
+    every row in another order). Returns the errors."""
+    from epic_tpu_torch.ops.gdn_kernel import (gdn_backward,
+                                               gdn_backward_rows,
+                                               gdn_backward_rows_plain,
+                                               gdn_plain)
+
+    dx, u = gdn_backward_rows(x, gamma, beta, g, inverse)
+    dx_p, u_p = gdn_backward_rows_plain(x, gamma, beta, g, inverse)
+    errs = {"dx": _rel(dx, dx_p), "u": _rel(u, u_p),
+            "max_abs_err": float((dx - dx_p).abs().max())}
+    if autograd:
+        xr, gr, br = (t.clone().requires_grad_() for t in (x, gamma, beta))
+        want = torch.autograd.grad(gdn_plain(xr, gr, br, inverse),
+                                   (xr, gr, br), g)
+        got = gdn_backward(x, gamma, beta, g, inverse)
+        for k, a, b in zip(("dx_autograd", "dgamma", "dbeta"), got, want):
+            errs[k] = _rel(a, b)
+    torch.cuda.synchronize()
+    for k, v in errs.items():
+        lim = WGRAD_REL_TOL if k in ("dgamma", "dbeta") else BWD_REL_TOL
+        if k != "max_abs_err" and not (math.isfinite(v) and v <= lim):
+            raise AssertionError(f"{label}: {k} relative error {v:.3e} > "
+                                 f"{lim}")
+    return errs
+
+
+def phase_backward_kernel(smi: str):
+    """The GDN / IGDN backward kernel against its plain version and against
+    autograd through gdn_plain: at a flagship first_train step's row counts
+    (timed: kernel, plain, bound), at ragged R, at every C it takes (R =
+    333), and on a side stream bitwise the main stream's. Returns the rows
+    checked, per kind."""
+    from epic_tpu_torch.ops.gdn_kernel import (MAX_CHANNELS,
+                                               gdn_backward_rows,
+                                               gdn_backward_rows_plain)
+
+    dev = torch.device("cuda")
+    peak = peaks(smi)
+    rng = np.random.default_rng(3)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    c = GDN_C
+    _, gamma, beta = _gdn_data(1, c, rng, dev)
+    out = {}
+    for inverse, name in ((False, "gdn"), (True, "igdn")):
+        per_shape = []
+        for rows in GDN_BWD_ROWS:
+            x = torch.randn((rows, c), generator=gen, device=dev)
+            g = torch.randn((rows, c), generator=gen, device=dev)
+            errs = _check_gdn_bwd(f"{name} backward R={rows}", x, gamma,
+                                  beta, g, inverse)
+            ms = time_cuda(lambda: gdn_backward_rows(x, gamma, beta, g,
+                                                     inverse))
+            plain_ms = time_cuda(lambda: gdn_backward_rows_plain(
+                x, gamma, beta, g, inverse))
+            bound, by = gdn_bwd_bounds_ms(rows, c, peak)
+            per_shape.append(dict(rows=rows, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound, bound_by=by, **errs))
+            log(f"[3b backward] {name} R={rows} C={c}: rel err dx "
+                f"{errs['dx']:.2e} u {errs['u']:.2e}, against autograd dx "
+                f"{errs['dx_autograd']:.2e} dgamma {errs['dgamma']:.2e} "
+                f"dbeta {errs['dbeta']:.2e}; kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}) [{smi}]")
+        worst = 0.0
+        for rows in GDN_RAGGED_ROWS:
+            x, gm, b = _gdn_data(rows, c, rng, dev)
+            g = torch.as_tensor(rng.normal(0, 1, (rows, c)).astype(
+                np.float32), device=dev)
+            e = _check_gdn_bwd(f"{name} backward R={rows}", x, gm, b, g,
+                               inverse)
+            worst = max(worst, e["dx"], e["u"], e["dx_autograd"])
+        for width in range(1, MAX_CHANNELS + 1):
+            x, gm, b = _gdn_data(333, width, rng, dev)
+            g = torch.as_tensor(rng.normal(0, 1, (333, width)).astype(
+                np.float32), device=dev)
+            e = _check_gdn_bwd(f"{name} backward C={width}", x, gm, b, g,
+                               inverse, autograd=width % 16 == 0)
+            worst = max(worst, e["dx"], e["u"])
+        x, gm, b = _gdn_data(GDN_BWD_ROWS[0], c, rng, dev)
+        g = torch.randn(x.shape, generator=gen, device=dev)
+        want = gdn_backward_rows(x, gm, b, g, inverse)
+        torch.cuda.synchronize()
+        s = torch.cuda.Stream()
+        with torch.cuda.stream(s):
+            got = gdn_backward_rows(x, gm, b, g, inverse)
+        s.synchronize()
+        if not all(torch.equal(a, w) for a, w in zip(got, want)):
+            raise AssertionError(f"{name} backward: a side-stream launch "
+                                 "differs from the main stream's bits")
+        log(f"[3b backward] {name} ragged R {GDN_RAGGED_ROWS} and C = 1.."
+            f"{MAX_CHANNELS} at R=333: max rel err {worst:.2e}; R="
+            f"{GDN_BWD_ROWS[0]} on a side stream bitwise the main stream's")
+        out[name] = per_shape
+    torch.cuda.empty_cache()
+    return out
+
+
+def _counted(fn, backward: bool = False):
+    """Run fn with the kernel launch counts (forward and backward) set to 0
+    just before; returns (fn's result, the forward counts just after), and
+    with ``backward`` also the backward counts. Without it, a backward
+    launch raises: no inference path may run one."""
+    from epic_tpu_torch.ops.gdn_kernel import gdn, gdn_backward
 
     torch.cuda.synchronize()
     gdn.launches.update(gdn=0, igdn=0)
+    gdn_backward.launches.update(gdn=0, igdn=0)
     out = fn()
     torch.cuda.synchronize()
+    bwd = dict(gdn_backward.launches)
+    if backward:
+        return out, dict(gdn.launches), bwd
+    if any(bwd.values()):
+        raise AssertionError(f"an inference path launched the backward "
+                             f"kernel: {bwd}")
     return out, dict(gdn.launches)
 
 
@@ -679,6 +841,194 @@ def phase_random_access():
     return launches
 
 
+# phase 9: train_device's curriculum at flagship width, batch and patch as
+# its defaults, a few steps of each stage
+TRAIN_STEPS = {"first_train": 4, "refine_gs": 3, "refine_gs_ga": 3,
+               "rems": 3}
+TRAIN_BATCH, TRAIN_PATCH = 16, 256
+# GDN / IGDN launches of one training forward, by stage: g_a_0 and g_a_1
+# (3 GDN each); first_train synthesizes the base (g_s_0) and its one level
+# (g_s_1), the single-quality stages g_s_1 alone (3 IGDN each). The
+# backward launches the same layers (every gradient is computed, those of
+# frozen parameters too: they enter the global-norm clip), but for rems'
+# IGDNs: its loss is the rate alone, which x_hat does not touch.
+STEP_LAUNCHES = {"first_train": {"gdn": 6, "igdn": 6},
+                 "refine_gs": {"gdn": 6, "igdn": 3},
+                 "refine_gs_ga": {"gdn": 6, "igdn": 3},
+                 "rems": {"gdn": 6, "igdn": 3}}
+STEP_BACKWARD = dict(STEP_LAUNCHES, rems={"gdn": 6, "igdn": 0})
+# one single-quality forward without gradient (a validation forward, or a
+# rems step's checkpoint latent): g_a_0 and g_a_1, then g_s_1
+NO_GRAD_LAUNCHES = {"gdn": 6, "igdn": 3}
+# a validation: 2 batches x 4 qualities x (the eval forward + the loss
+# forward), single-quality, no gradient
+VAL_FORWARDS = 16
+
+
+def _train_args(save_path: str):
+    from epic_tpu_torch.cli import train_device as td
+
+    steps = ",".join(f"{k}={v}" for k, v in TRAIN_STEPS.items())
+    return td.parse_args([
+        "--save_path", save_path, "--N", "192", "--M", "640",
+        "--division_dimension", "320", "640", "--dim_chunk", "32",
+        "--param_net_widths", "224", "176", "128", "64",
+        "--compute_dtype", "bfloat16", "--check_levels", "0.25", "0.75",
+        "--check_levels_np", "24", "24", "--batch_size", str(TRAIN_BATCH),
+        "--patch_size", str(TRAIN_PATCH), "--steps", steps,
+        "--log_every", "1", "--val_every", "1000", "--ckpt_every", "1000"])
+
+
+def _train_images():
+    from epic_tpu_torch.utils.synthetic import synth_images
+
+    imgs = synth_images(8, np.random.default_rng(0))
+    return imgs, [i % 2 == 0 for i in range(len(imgs))]
+
+
+def _terms(m) -> str:
+    """A step's loss terms: rates, and the MSE of each level."""
+    mse = "/".join(f"{v:.5f}" for v in m["mse_loss"].tolist())
+    return (f"{float(m['loss']):.4f} (bpp base {float(m['bpp_base']):.4f} "
+            f"scalable {float(m['bpp_scalable']):.4f} hype "
+            f"{float(m['bpp_hype']):.4f}, mse {mse}, grad norm "
+            f"{float(m['grad_norm']):.3e})")
+
+
+def _stage_steps(dev) -> None:
+    """Each stage's steps on one fixed batch through the package's pieces
+    (``tools.profile_train.stage_runner``: make_stage, TrainState,
+    make_train_step, the quality draw and the rems checkpoint latent):
+    launches per step from zero, finite losses, frozen parameters bitwise
+    unchanged, and first_train's loss falling."""
+    import epic_tpu_torch as et
+    from epic_tpu_torch.data.device_bank import (build_crop_bank,
+                                                 make_device_sampler)
+    from epic_tpu_torch.tools.profile_train import stage_model, stage_runner
+    from epic_tpu_torch.tools.workload import PIC
+
+    imgs, has_val = _train_images()
+    batch = make_device_sampler(build_crop_bank(imgs, has_val, TRAIN_PATCH),
+                                TRAIN_PATCH, TRAIN_BATCH, dev)(
+        torch.Generator(device=dev).manual_seed(5))
+    model = et.get_model("pic", **PIC).init_weights(0).to(dev)
+    for stage, n_steps in TRAIN_STEPS.items():
+        model = stage_model(stage, model)
+        run, state = stage_runner(model, stage, lambda _: batch, dev)
+        want = STEP_LAUNCHES[stage]
+        if stage == "rems":  # and the checkpoint latent's forward
+            want = {k: v + NO_GRAD_LAUNCHES[k] for k, v in want.items()}
+        before = [p.detach().clone() for p in state.params]
+        losses, times = [], []
+        for i in range(n_steps):
+            t = time.perf_counter()
+            metrics, fwd, bwd = _counted(run, True)
+            times.append(time.perf_counter() - t)
+            _expect("9 training", f"{stage} step forward", fwd, want)
+            _expect("9 training", f"{stage} step backward", bwd,
+                    STEP_BACKWARD[stage])
+            losses.append(float(metrics["loss"]))
+            log(f"[9 training] {stage} step {i} on one fixed batch: loss "
+                + _terms(metrics))
+            if not math.isfinite(losses[-1]):
+                raise AssertionError(f"{stage}: loss {losses[-1]}")
+        changed = {n for n, p, b in zip(state.names, state.params, before)
+                   if not torch.equal(p, b)}
+        frozen = {n for n, t in zip(state.names, state.trainable)
+                  if not t and n not in state.aux_names}
+        if changed & frozen or not changed - set(state.aux_names):
+            raise AssertionError(f"{stage}: frozen parameters changed "
+                                 f"{sorted(changed & frozen)[:5]}, or no "
+                                 "trainable one did")
+        prefixes = sorted({n.split(".")[0] for n in changed})
+        log(f"[9 training] {stage} on one fixed batch: step s "
+            + " ".join(f"{v:.3f}" for v in times)
+            + f"; {len(changed)} tensors changed ({', '.join(prefixes)}), "
+            f"{len(frozen)} frozen ones bitwise unchanged")
+        # From random weights at lr 1e-4 the fourth step's loss jumps (the
+        # top level's MSE) and falls again by the sixth; it does so with
+        # GDN's plain autograd in place of the kernels and in float32, and
+        # not at a tenth of the lr (tools/train_witness.py, PERF.md). So
+        # the loss must fall over the first three steps.
+        if stage == "first_train" and not losses[0] > losses[1] > losses[2]:
+            raise AssertionError(f"first_train loss did not fall on a fixed "
+                                 f"batch: {losses}")
+        del before
+    del model, state
+    torch.cuda.empty_cache()
+
+
+def phase_training(smi: str):
+    """train_device's curriculum at flagship width: first the steps of each
+    stage through the package's pieces (_stage_steps); then
+    ``cli.train_device.run`` on bench.py-style synthetic images, a few
+    steps of each stage with a validation and a checkpoint at each stage's
+    end, launches counted from zero over the whole run; the rems
+    checkpoint loaded by ``load_checkpoint`` bitwise the trained weights,
+    and a progressive encode / decode with them bitwise between encoder
+    and decoder. Returns the run's (forward, backward) launches."""
+    import tempfile
+
+    import epic_tpu_torch as et
+    from epic_tpu_torch.cli import train_device as td
+    from epic_tpu_torch.device import resolve_device
+    from epic_tpu_torch.tools.workload import images
+
+    dev = resolve_device("cuda")
+    t0 = time.perf_counter()
+    _stage_steps(dev)
+    log(f"[9 training] stage steps {time.perf_counter() - t0:.1f} s")
+    imgs, has_val = _train_images()
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        res, fwd, bwd = _counted(lambda: td.run(_train_args(tmp), imgs,
+                                                has_val), True)
+        log(f"[9 training] train_device.run {time.perf_counter() - t:.1f} s")
+        want_f, want_b = {"gdn": 0, "igdn": 0}, {"gdn": 0, "igdn": 0}
+        for stage, n in TRAIN_STEPS.items():
+            for k in want_f:
+                # the steps, one validation, and in rems one checkpoint
+                # latent per step
+                no_grad = VAL_FORWARDS + (n if stage == "rems" else 0)
+                want_f[k] += (n * STEP_LAUNCHES[stage][k]
+                              + no_grad * NO_GRAD_LAUNCHES[k])
+                want_b[k] += n * STEP_BACKWARD[stage][k]
+        _expect("9 training", "train_device.run forward", fwd, want_f)
+        _expect("9 training", "train_device.run backward", bwd, want_b)
+        for stage, r in res["stages"].items():
+            m = r["metrics"]
+            if not (math.isfinite(m["loss"]) and math.isfinite(
+                    r["val"]["loss"])):
+                raise AssertionError(f"{stage}: loss {m['loss']} val "
+                                     f"{r['val']['loss']}")
+            log(f"[9 training] {stage}: {r['steps']} steps, "
+                f"{r['steps_per_s']:.3f} steps/s (train steps alone, batch "
+                f"{TRAIN_BATCH} x {TRAIN_PATCH}^2), stage {r['seconds']:.1f}"
+                f" s, peak memory {r['peak_mem_bytes'] / 2**30:.2f} GiB, "
+                f"last loss {m['loss']:.4f} bpp {m['bpp_loss']:.4f} aux "
+                f"{m['aux_loss']:.2f} grad norm {m['grad_norm']:.3e}, val "
+                f"loss {r['val']['loss']:.4f} [{smi}]")
+        trained = {k: v.detach().float().cpu()
+                   for k, v in res["model"].state_dict().items()}
+        loaded, _, ck_step = et.load_checkpoint(os.path.join(tmp, "rems"))
+        if ck_step != TRAIN_STEPS["rems"] or not all(
+                torch.equal(v, trained[k])
+                for k, v in loaded.state_dict().items()):
+            raise AssertionError("the rems checkpoint differs from the "
+                                 "trained weights")
+        nbytes = os.path.getsize(os.path.join(tmp, "rems", "last.npz"))
+    del res
+    torch.cuda.empty_cache()
+    log(f"[9 training] rems checkpoint ({nbytes} bytes) loads bitwise the "
+        f"trained weights ({len(trained)} tensors)")
+    codec = et.PICCodec(loaded, device="cuda")
+    x, _ = images()
+    bs, state, outs, _ = _encode_and_decode_levels("9 training", codec, x,
+                                                   True)
+    _check_levels("9 training", codec, x, bs, state, outs)
+    return fwd, bwd
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -688,11 +1038,14 @@ def main() -> int:
     smi = phase_environment()
     phase_build()
     per_shape = phase_kernels(smi)
+    bwd_shapes = phase_backward_kernel(smi)
     phase_pic_path()
     launches = phase_main_path()
     phase_reference()
     launches["pipelined"] = phase_pipeline(smi)
     launches["random_access"] = phase_random_access()
+    train_fwd, train_bwd = phase_training(smi)
+    launches["training"] = train_fwd
     kernels = []
     for name in ("gdn", "igdn"):
         top = per_shape[name][0]  # the largest call of the main path
@@ -708,6 +1061,19 @@ def main() -> int:
             "launches_by_path": {k: n[name] for k, n in launches.items()},
             "cuda_core_bound_ms": top["cuda_core_bound_ms"],
             "product_ms": top["product_ms"]})
+    for name in ("gdn", "igdn"):
+        top = bwd_shapes[name][0]  # a first_train step's largest call
+        kernels.append({
+            "name": f"{name}_backward", "route": "cuda",
+            "source": "epic_tpu_torch/csrc/gdn_bwd.cu",
+            "replaces": "epic_tpu/ops/pallas_gdn.py:80",
+            "launches": train_bwd[name],
+            "max_abs_err": max(r["max_abs_err"] for r in bwd_shapes[name]),
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": None, "rows": top["rows"],
+            "launches_by_path": {"training": train_bwd[name]},
+            "max_rel_err_dx": max(r["dx"] for r in bwd_shapes[name])})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

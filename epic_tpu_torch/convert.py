@@ -20,6 +20,10 @@ and parameter names follow the flax tree, so each leaf maps by its path:
 
 bfloat16 arrays that numpy surfaces as opaque ``|V2`` go through uint16.
 Any array left over or missing, or of the wrong shape, raises.
+
+``to_jax_params(model)`` is the inverse: the port's parameters as the JAX
+package's tree of float32 numpy arrays, so that checkpoints the port writes
+load in either package.
 """
 
 from __future__ import annotations
@@ -90,6 +94,39 @@ def from_jax_params(params: Dict[str, Any], model: nn.Module
         raise ValueError(f"arrays left over: {leftover}; "
                          f"parameters missing: {missing}")
     return out
+
+
+def _jax_leaf(key: str, t: torch.Tensor):
+    """The inverse of ``_convert_leaf``: a state_dict entry -> (flax path,
+    array)."""
+    path = key.split(".")
+    name, parent = path[-1], (path[-2] if len(path) > 1 else "")
+    if name == "weight" and t.ndim == 4:
+        if parent.startswith("ConvTranspose"):
+            t = torch.flip(t.permute(2, 3, 0, 1), (0, 1))
+        else:
+            t = t.permute(2, 3, 1, 0)
+        name = "kernel"
+    elif name == "weight" and t.ndim == 5:
+        t, name = t.permute(0, 3, 4, 2, 1), "kernel"
+    elif name == "weight" and t.ndim == 2:
+        t, name = t.t(), "kernel"
+    elif name.startswith("Conv_") and name.endswith("_kernel"):
+        t = t.permute(0, 3, 4, 2, 1)
+    return tuple(path[:-1]) + (name,), t
+
+
+def to_jax_params(model: nn.Module) -> Dict[str, Any]:
+    """A model -> the JAX package's parameter tree of float32 numpy arrays.
+    ``from_jax_params`` of the result gives the state_dict back bitwise."""
+    tree: Dict[str, Any] = {}
+    for key, t in model.state_dict().items():
+        path, t = _jax_leaf(key, t.detach().float().cpu())
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(t.numpy())
+    return tree
 
 
 def _unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:

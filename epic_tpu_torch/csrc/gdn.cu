@@ -56,93 +56,13 @@
 // Shared memory at C = 192: gamma 192 * 200 * 4 = 153,600 B plus two x
 // tiles of 32 * 196 * 4 = 25,088 B: 203,776 B of the 232,448 a block may use.
 
-#include <cuda_runtime.h>
-#include <cstdint>
+#include "gdn_common.cuh"
 
 namespace {
-
-constexpr int kTileRows = 32;
-constexpr int kWarpsN = 4;                      // warps across N (x 2 in M)
-constexpr int kThreads = 64 * kWarpsN;
-constexpr int kMaxChannels = 192;
-constexpr int kGammaStride = kMaxChannels + 8;  // floats per gamma row
-constexpr int kFragsPerWarp = kMaxChannels / 8 / kWarpsN;  // 6
-
-__host__ __device__ constexpr int round8(int c) { return (c + 7) & ~7; }
-__host__ __device__ constexpr int tile_stride(int c) { return round8(c) + 4; }
 
 __host__ __device__ constexpr int smem_bytes(int c) {
     return (round8(c) * kGammaStride + 2 * kTileRows * tile_stride(c)) *
            static_cast<int>(sizeof(float));
-}
-
-// The TF32 value nearest to v, ties away from zero: what cvt.rna.tf32.f32
-// gives for a finite v, in two integer operations (half a TF32 unit added
-// to the magnitude's bits, then the 13 low bits cleared).
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-    return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-}
-
-// v = hi + lo, both TF32.
-__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-    hi = to_tf32(v);
-    lo = to_tf32(v - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-    asm(
-        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-                 :: "r"(s), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
-                 :: "r"(s), "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;");
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {
-    asm volatile("cp.async.wait_group 1;" ::: "memory");
-}
-
-// Start copying tile `t` of x ([rows, c]) into `buf` (stride tile_stride(c)).
-// Columns c .. round8(c) - 1 are never written here: they hold zeros.
-__device__ __forceinline__ void load_tile(float* buf, const float* x,
-                                          long long rows, int c, long long t,
-                                          bool vec4) {
-    const int stride = tile_stride(c);
-    const long long r0 = t * kTileRows;
-    if (vec4) {
-        const int per_row = c >> 2;
-        for (int i = threadIdx.x; i < kTileRows * per_row; i += kThreads) {
-            const int r = i / per_row, q = i - r * per_row;
-            const bool valid = r0 + r < rows;
-            const float* src = valid ? x + (r0 + r) * c + 4 * q : x;
-            cp_async16(buf + r * stride + 4 * q, src, valid);
-        }
-    } else {
-        for (int i = threadIdx.x; i < kTileRows * c; i += kThreads) {
-            const int r = i / c, q = i - r * c;
-            const bool valid = r0 + r < rows;
-            const float* src = valid ? x + (r0 + r) * c + q : x;
-            cp_async4(buf + r * stride + q, src, valid);
-        }
-    }
 }
 
 template <bool kInverse>
@@ -174,40 +94,16 @@ gdn_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
 
     // gamma -> shared memory, once per block, all in flight at once; the
     // padding (rows >= C, columns >= C) is zero-filled by the same copies
-    if ((c & 3) == 0 && (reinterpret_cast<uintptr_t>(gamma) & 15) == 0) {
-        constexpr int per_row = kMaxChannels / 4;
-        for (int i = tid; i < kp * per_row; i += kThreads) {
-            const int r = i / per_row, q = 4 * (i - r * per_row);
-            const bool valid = r < c && q < c;
-            cp_async16(gs + r * kGammaStride + q,
-                       valid ? gamma + r * c + q : gamma, valid);
-        }
-    } else {
-        for (int i = tid; i < kp * kMaxChannels; i += kThreads) {
-            const int r = i / kMaxChannels, q = i - r * kMaxChannels;
-            const bool valid = r < c && q < c;
-            cp_async4(gs + r * kGammaStride + q,
-                      valid ? gamma + r * c + q : gamma, valid);
-        }
-    }
+    load_gamma(gs, gamma, c, kp);
     long long t = blockIdx.x;
     load_tile(xbuf, x, rows, c, t, vec4);
     cp_async_commit();  // gamma and the first tile
-    // zero the K padding of both tiles (cp.async never writes it)
-    for (int i = tid; i < 2 * kTileRows * (kp - c); i += kThreads) {
-        const int r = i / (kp - c);   // row of the two stacked tiles
-        xbuf[r * stride + c + (i - r * (kp - c))] = 0.0f;
-    }
+    zero_k_padding(xbuf, c);
 
     const int m0 = 16 * (warp & 1);    // this warp's rows in the tile
     const int f0 = warp >> 1;          // its first n-fragment (of 24)
     float bcol[kFragsPerWarp][2];
-#pragma unroll
-    for (int j = 0; j < kFragsPerWarp; ++j) {
-        const int col = 8 * (f0 + kWarpsN * j) + 2 * tig;
-        bcol[j][0] = col < c ? beta[col] : 1.0f;
-        bcol[j][1] = col + 1 < c ? beta[col + 1] : 1.0f;
-    }
+    load_beta_cols(bcol, beta, c, f0, tig);
 
     for (int it = 0; t < ntiles; t += gridDim.x, ++it) {
         const float* xs = xbuf + (it & 1) * tile_floats;
@@ -293,38 +189,14 @@ gdn_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
     }
 }
 
-// Per device: the SM count, and whether each variant's shared-memory limit
-// was raised (once, to what the widest C needs).
-struct DeviceState {
-    int sm_count = 0;
-    bool smem_set[2] = {false, false};
-};
-constexpr int kMaxDevices = 64;
-DeviceState g_devices[kMaxDevices];
-
 template <bool kInverse>
 cudaError_t launch(const float* x, const float* gamma, const float* beta,
                    float* y, long long rows, int c, cudaStream_t stream) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
+    int blocks = 0;
+    const cudaError_t err = persistent_grid(
+        gdn_kernel<kInverse>, kInverse, smem_bytes(kMaxChannels), rows,
+        blocks);
     if (err != cudaSuccess) return err;
-    if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-    DeviceState& st = g_devices[dev];
-    if (st.sm_count == 0) {
-        err = cudaDeviceGetAttribute(&st.sm_count,
-                                     cudaDevAttrMultiProcessorCount, dev);
-        if (err != cudaSuccess) return err;
-    }
-    if (!st.smem_set[kInverse]) {
-        err = cudaFuncSetAttribute(gdn_kernel<kInverse>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   smem_bytes(kMaxChannels));
-        if (err != cudaSuccess) return err;
-        st.smem_set[kInverse] = true;
-    }
-    const long long tiles = (rows + kTileRows - 1) / kTileRows;
-    const int blocks = static_cast<int>(tiles < st.sm_count ? tiles
-                                                            : st.sm_count);
     gdn_kernel<kInverse><<<blocks, kThreads, smem_bytes(c), stream>>>(
         x, gamma, beta, y, rows, c);
     return cudaGetLastError();

@@ -1,9 +1,11 @@
-"""Factorized-prior entropy bottleneck (Balle et al.), inference half.
+"""Factorized-prior entropy bottleneck (Balle et al.).
 
 A learned monotone per-channel CDF built from matrix/bias/factor stacks,
 with per-channel quantiles whose middle entry is the median that z is
-coded around. Parameter names and shapes match the JAX package's module, so
-weights carry across one to one.
+coded around. In training, uniform noise stands in for rounding, and the
+quantiles are fitted by their own loss (``aux_loss``) through which no
+gradient reaches the density's parameters. Parameter names and shapes
+match the JAX package's module, so weights carry across one to one.
 """
 
 from __future__ import annotations
@@ -18,7 +20,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from .gaussian import CdfTables, quantize_pmf_rows
-from .ops import lower_bound
+from .ops import lower_bound, uniform_noise
+
+_TAIL_MASS = 1e-9  # the density mass outside the fitted quantiles
 
 
 class EntropyBottleneck(nn.Module):
@@ -43,16 +47,23 @@ class EntropyBottleneck(nn.Module):
         self.quantiles = nn.Parameter(torch.tensor(
             [-init_scale, 0.0, init_scale]).repeat(channels, 1, 1))
 
-    def _logits_cumulative(self, inputs: torch.Tensor) -> torch.Tensor:
-        """inputs [C, 1, N] -> logits of the cumulative at each input."""
+    def _logits_cumulative(self, inputs: torch.Tensor,
+                           stop_gradient: bool = False) -> torch.Tensor:
+        """inputs [C, 1, N] -> logits of the cumulative at each input. With
+        ``stop_gradient`` the matrices, biases and factors are detached, so
+        a loss on the result trains the inputs alone."""
+        def param(name):
+            p = getattr(self, name)
+            return p.detach() if stop_gradient else p
+
         logits = inputs
         for i in range(self.n_layers):
-            matrix = getattr(self, f"matrix_{i}")
-            logits = torch.einsum("cof,cfn->con", F.softplus(matrix), logits)
-            logits = logits + getattr(self, f"bias_{i}")
+            logits = torch.einsum("cof,cfn->con",
+                                  F.softplus(param(f"matrix_{i}")), logits)
+            logits = logits + param(f"bias_{i}")
             if i < self.n_layers - 1:
-                factor = getattr(self, f"factor_{i}")
-                logits = logits + torch.tanh(factor) * torch.tanh(logits)
+                logits = logits + (torch.tanh(param(f"factor_{i}"))
+                                   * torch.tanh(logits))
         return logits
 
     def _pmf(self, samples):
@@ -65,13 +76,18 @@ class EntropyBottleneck(nn.Module):
     def medians(self) -> torch.Tensor:
         return self.quantiles[:, 0, 1]  # [C]
 
-    def forward(self, x: torch.Tensor):
-        """Evaluation forward on NHWC x: (x rounded around the medians,
-        likelihoods), both NHWC."""
+    def forward(self, x: torch.Tensor, training: bool = False,
+                generator: torch.Generator = None):
+        """Forward on NHWC x: (outputs, likelihoods), both NHWC. Outputs are
+        x rounded around the medians, or in training x plus U(-0.5, 0.5)
+        noise drawn from ``generator``."""
         b, h, w, c = x.shape
         values = x.permute(3, 0, 1, 2).reshape(c, 1, -1)
-        med = self.medians()[:, None, None]
-        outputs = torch.round(values - med) + med
+        if training:
+            outputs = values + uniform_noise(values, generator)
+        else:
+            med = self.medians()[:, None, None]
+            outputs = torch.round(values - med) + med
         likelihood, _, _ = self._pmf(outputs)
         if self.likelihood_bound > 0:
             likelihood = lower_bound(likelihood, self.likelihood_bound)
@@ -80,6 +96,16 @@ class EntropyBottleneck(nn.Module):
             return t.reshape(c, b, h, w).permute(1, 2, 3, 0)
 
         return unshape(outputs), unshape(likelihood)
+
+    def aux_loss(self) -> torch.Tensor:
+        """The quantile-fitting loss: the cumulative's logits at the three
+        quantiles of each channel pulled to -t, 0, t, t = log(2 / _TAIL_MASS
+        - 1). Only the quantiles receive its gradient."""
+        logits = self._logits_cumulative(self.quantiles, stop_gradient=True)
+        t = math.log(2 / _TAIL_MASS - 1)
+        target = torch.tensor([-t, 0.0, t], dtype=torch.float32,
+                              device=logits.device)
+        return (logits - target).abs().sum()
 
     @torch.no_grad()
     def cdf_tables(self, precision: int = 16):

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from .coder import RansCoder, pmf_to_quantized_cdf_batch
-from .ops import lower_bound
+from .ops import lower_bound, uniform_noise
 
 SCALES_MIN = 0.11
 SCALES_MAX = 256.0
@@ -52,6 +52,18 @@ def gaussian_likelihood(inputs, scales, means=None,
     if likelihood_bound > 0:
         likelihood = lower_bound(likelihood, likelihood_bound)
     return likelihood
+
+
+def gaussian_noise_quantize(inputs: torch.Tensor,
+                            generator: torch.Generator,
+                            mask=None) -> torch.Tensor:
+    """Training's stand-in for rounding: inputs + U(-0.5, 0.5) noise drawn
+    from ``generator``; where ``mask`` is 0 the noise is zeroed (elements
+    that are not transmitted)."""
+    noise = uniform_noise(inputs, generator)
+    if mask is not None:
+        noise = noise * mask
+    return inputs + noise
 
 
 def build_indexes(scales: torch.Tensor, scale_table,

@@ -3,6 +3,8 @@
 - ``lower_bound``: clamp from below whose gradient passes where x >= bound
   or where the gradient would push x back up (compressai's LowerBound).
 - ``ste_round`` / ``quantize_ste``: straight-through rounding.
+- ``uniform_noise``: the additive U(-0.5, 0.5) noise that stands in for
+  rounding in training, drawn from an explicit ``torch.Generator``.
 - ``nn_param_init`` / ``nn_param_apply``: the offset/sqrt reparametrisation
   that keeps GDN's beta and gamma non-negative.
 """
@@ -41,6 +43,14 @@ def quantize_ste(x: torch.Tensor, means=None) -> torch.Tensor:
     if means is None:
         return ste_round(x)
     return ste_round(x - means) + means
+
+
+def uniform_noise(like: torch.Tensor,
+                  generator: torch.Generator) -> torch.Tensor:
+    """U(-0.5, 0.5) noise of ``like``'s shape, dtype and device, drawn from
+    ``generator`` (which must live on that device)."""
+    return torch.rand(like.shape, generator=generator, device=like.device,
+                      dtype=like.dtype) - 0.5
 
 
 # value = reparam**2 - pedestal, trained in sqrt space so the underlying

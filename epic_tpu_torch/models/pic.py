@@ -1,4 +1,4 @@
-"""VarianceMaskingPIC, inference half: the paper's progressive model.
+"""VarianceMaskingPIC: the paper's progressive model.
 
 An image is coded as a base latent (the first ``division[0]`` channels,
 ``ns0`` channel-autoregressive slices with up to ``max_support_slices`` of
@@ -17,6 +17,12 @@ The JAX package runs the slice chains as ``lax.scan`` over stacked weights;
 here they are loops over the same stacked weights (scan and unrolled are
 bitwise equal in the reference). Tensors are NHWC; entropy parameters are
 float32 whatever the compute dtype.
+
+The training forwards (``forward``, multi-quality; ``forward_single_quality``)
+reuse the codec's slice functions. With ``training`` the rounding of z and
+of the latents is replaced by U(-0.5, 0.5) noise drawn from an explicit
+``torch.Generator`` on the model's device, and the reconstructions use
+straight-through rounding; without it they round, as the codec does.
 """
 
 from __future__ import annotations
@@ -28,8 +34,11 @@ import torch
 from torch import nn
 
 from ..entropy.bottleneck import EntropyBottleneck
+from ..entropy.gaussian import gaussian_likelihood, gaussian_noise_quantize
+from ..entropy.ops import quantize_ste, ste_round
 from ..ops.attention import Dense
 from ..ops.conv import Conv, ConvTranspose, init_conv_
+from ..ops.masking import apply_noise_mask, variance_mask
 from .builder import (AnalysisTransform, HyperAnalysis, HyperSynthesis,
                       StackedParamNet, SynthesisTransform)
 
@@ -197,6 +206,176 @@ class VarianceMaskingPIC(nn.Module):
         lrp_in = torch.cat([mean_support, y_hat_raw], dim=-1)
         return (y_hat_raw + 0.5 * torch.tanh(self.lrp_prog(lrp_in, i))
                 + base_i)
+
+    def refine_prog_params_all(self, quality, mus, scales, checkpoint_ref,
+                               mus_b, scales_b):
+        """The REM hook of the progressive params at one quality: the
+        identity here (``VarianceMaskingPICREM`` refines)."""
+        return mus, scales
+
+    # ---- training forwards ----
+    def _train_front(self, x, training: bool, generator):
+        """g_a -> h_a -> bottleneck -> h_s. Returns (y, z likelihoods,
+        latent_means, latent_scales); z_hat is z rounded straight through
+        around the medians."""
+        y = self.latent(x)
+        z = self.h_a(y)
+        _, z_lik = self.entropy_bottleneck(z, training, generator)
+        z_hat = quantize_ste(z, self.z_medians())
+        lm, ls = self.hyper_synthesis(z_hat)
+        return y, z_lik, lm, ls
+
+    def _train_base_chain(self, y, lm, ls, training: bool, generator):
+        """The base slices with their likelihoods (of noisy slices in
+        training, of rounded ones otherwise). y_hat is y rounded straight
+        through around mu, then refined by LRP. Returns lists (y_hat, liks,
+        mus, scales)."""
+        d0 = self.division[0]
+        lm_b, ls_b = lm[..., :d0], ls[..., :d0]
+        buf = self.base_buffer(lm_b)
+        out = ([], [], [], [])
+        for i, y_i in enumerate(slices_of(y, 0, self.ns0, self.dim_chunk)):
+            mu, scale, msup = self.base_slice_params(lm_b, ls_b, buf, i)
+            noisy = (gaussian_noise_quantize(y_i, generator) if training
+                     else quantize_ste(y_i, mu))
+            lik = gaussian_likelihood(noisy, scale, mu, self.scale_bound)
+            y_hat, buf = self.finish_base_slice(quantize_ste(y_i, mu), msup,
+                                                buf, i)
+            for acc, t in zip(out, (y_hat, lik, mu, scale)):
+                acc.append(t)
+        return out
+
+    def _residuals(self, y: torch.Tensor) -> torch.Tensor:
+        """The progressive residual slices [S, B, h, w, c]: enhancement
+        slice minus base slice (delta coding)."""
+        c, ns0, nprog = self.dim_chunk, self.ns0, self.ns1 - self.ns0
+        return torch.stack([a - b for a, b in zip(
+            slices_of(y, ns0, ns0 + nprog, c), slices_of(y, 0, nprog, c))])
+
+    def _masked_slice(self, r_i, mu, scale, mask, training: bool,
+                      generator):
+        """One progressive slice at the masks ``mask`` (any leading level
+        axes broadcast against r_i / mu / scale): (y_hat before LRP,
+        likelihoods). Untransmitted elements decode to mu."""
+        centered = (r_i - mu) * mask
+        noisy = (gaussian_noise_quantize(centered, generator) if training
+                 else ste_round(centered))
+        lik = gaussian_likelihood(noisy, scale * mask, None,
+                                  self.scale_bound)
+        return ste_round(r_i - mu) * mask + mu, lik
+
+    @staticmethod
+    def _define_quality(quality) -> List[float]:
+        if quality is None:
+            return [0, 10]
+        if isinstance(quality, (list, tuple)):
+            return list(quality) if quality[0] == 0 else [0] + list(quality)
+        return [quality]
+
+    def forward(self, x: torch.Tensor, quality=None, training: bool = True,
+                generator: torch.Generator = None):
+        """Multi-quality training forward (the JAX package's ``__call__``):
+        x [B,H,W,3] -> {"x_hat": [1+L, B, H, W, 3] (base first, not
+        clipped), "likelihoods": {"y": base [B,h,w,d0], "y_prog": per level
+        [L,B,h,w,d1] (base + that level's slices), "z"}, "y_base", "y_prog",
+        "prog_scales", "prog_mus"}, for the qualities (0 first) of
+        ``quality`` (default [0, 10]). ``generator`` draws the training
+        noise."""
+        qualities = self._define_quality(quality)
+        y, z_lik, lm, ls = self._train_front(x, training, generator)
+        base, base_liks, _, _ = self._train_base_chain(y, lm, ls, training,
+                                                       generator)
+        y_hat_b = torch.cat(base, dim=-1)
+        x_hat_base = self.synthesize_base(y_hat_b)
+        y_lik_base = torch.cat(base_liks, dim=-1)
+        prog_qs = [q for q in qualities if q != 0]
+        if not prog_qs:
+            return {"x_hat": x_hat_base[None],
+                    "likelihoods": {"y": y_lik_base, "z": z_lik},
+                    "y_base": y_hat_b}
+        d0 = self.division[0]
+        mus, scales, msups = self.prog_param_chain(base, lm[..., d0:],
+                                                   ls[..., d0:])
+        levels, b = len(prog_qs), x.shape[0]
+
+        def fold(t):  # [B, ...] -> [L*B, ...], level-major
+            return t.repeat((levels,) + (1,) * (t.dim() - 1))
+
+        r_s = self._residuals(y)
+        prog_slices, prog_liks = [], []
+        for i in range(r_s.shape[0]):
+            mask = torch.stack([apply_noise_mask(variance_mask(scales[i], q),
+                                                 False) for q in prog_qs])
+            y_hat_i, lik = self._masked_slice(r_s[i][None], mus[i][None],
+                                              scales[i][None], mask,
+                                              training, generator)
+            flat = self.finish_prog_slice(y_hat_i.flatten(0, 1),
+                                          fold(msups[i]), fold(base[i]), i)
+            prog_slices.append(flat.reshape(y_hat_i.shape))
+            prog_liks.append(lik)
+        y_hat_prog = torch.cat(prog_slices, dim=-1)  # [L, B, h, w, d1 - d0]
+        x_hat_prog = self.synthesize_prog(y_hat_prog.flatten(0, 1))
+        x_hat_prog = x_hat_prog.reshape((levels, b) + x_hat_prog.shape[1:])
+        y_lik_prog = torch.cat(prog_liks, dim=-1)
+        y_lik_levels = torch.cat(
+            [y_lik_base[None].expand((levels,) + y_lik_base.shape),
+             y_lik_prog], dim=-1)
+        return {"x_hat": torch.cat([x_hat_base[None], x_hat_prog], dim=0),
+                "likelihoods": {"y": y_lik_base, "y_prog": y_lik_levels,
+                                "z": z_lik},
+                "y_base": y_hat_b, "y_prog": y_hat_prog,
+                "prog_scales": scales, "prog_mus": mus}
+
+    def forward_single_quality(self, x: torch.Tensor, quality: float,
+                               training: bool = False, checkpoint_ref=None,
+                               generator: torch.Generator = None):
+        """One-quality forward: x [B,H,W,3] -> {"x_hat" clipped to [0, 1],
+        "likelihoods": {"y": base and progressive slices, "z"}, "y_hat",
+        "y_base", "y_prog", "mu_base", "mu", "std_base", "std"}. Quality 0
+        decodes the base alone ("y_hat" is the base latent). With a
+        checkpoint latent ``checkpoint_ref`` a ``rem`` model's REMs refine
+        the masking and coding params (the support chain stays
+        unrefined)."""
+        y, z_lik, lm, ls = self._train_front(x, training, generator)
+        base, base_liks, mus_b, scales_b = self._train_base_chain(
+            y, lm, ls, training, generator)
+        y_hat_b = torch.cat(base, dim=-1)
+        y_lik_base = torch.cat(base_liks, dim=-1)
+        if quality == 0:
+            return {"x_hat": torch.clamp(self.synthesize_base(y_hat_b), 0.0,
+                                         1.0),
+                    "likelihoods": {"y": y_lik_base, "z": z_lik},
+                    "y_hat": y_hat_b, "y_base": y_hat_b,
+                    "mu": torch.cat(mus_b, dim=-1),
+                    "std": torch.cat(scales_b, dim=-1)}
+        d0 = self.division[0]
+        mus, scales, msups = self.prog_param_chain(base, lm[..., d0:],
+                                                   ls[..., d0:])
+        mus, scales = self.refine_prog_params_all(
+            quality, mus, scales, checkpoint_ref, torch.stack(mus_b),
+            torch.stack(scales_b))
+        r_s = self._residuals(y)
+        prog_slices, prog_liks = [], []
+        for i in range(r_s.shape[0]):
+            mask = apply_noise_mask(variance_mask(scales[i], quality), False)
+            y_hat_i, lik = self._masked_slice(r_s[i], mus[i], scales[i], mask,
+                                              training, generator)
+            prog_slices.append(self.finish_prog_slice(y_hat_i, msups[i],
+                                                      base[i], i))
+            prog_liks.append(lik)
+        y_hat_p = torch.cat(prog_slices, dim=-1)
+        return {"x_hat": torch.clamp(self.synthesize_prog(y_hat_p), 0.0, 1.0),
+                "likelihoods": {"y": torch.cat([y_lik_base] + prog_liks,
+                                               dim=-1), "z": z_lik},
+                "y_hat": y_hat_p, "y_base": y_hat_b, "y_prog": y_hat_p,
+                "mu_base": torch.cat(mus_b, dim=-1),
+                "mu": torch.cat(list(mus), dim=-1),
+                "std_base": torch.cat(scales_b, dim=-1),
+                "std": torch.cat(list(scales), dim=-1)}
+
+    def aux_loss(self) -> torch.Tensor:
+        """The bottleneck's quantile-fitting loss."""
+        return self.entropy_bottleneck.aux_loss()
 
     # ---- weights ----
     @torch.no_grad()

@@ -1,4 +1,4 @@
-"""VarianceMaskingPICREM, inference half: PIC + Rate Enhancement Modules.
+"""VarianceMaskingPICREM: PIC + Rate Enhancement Modules.
 
 REMs refine the progressive entropy parameters (mu, sigma) of each slice
 from an already-decoded checkpoint-quality latent, one REM bank per
@@ -17,6 +17,9 @@ Two refinements, each as the JAX package computes it:
   no-op (the JAX package returns early at quality <= check_levels[0]), so
   one checkpoint gives the plain chain. The support chains off the
   unrefined mu + base_i and the refined scale.
+
+Its training forward is single-quality (``forward`` is
+``forward_single_quality``, whose REM hook is ``refine_prog_params_all``).
 """
 
 from __future__ import annotations
@@ -40,6 +43,13 @@ class VarianceMaskingPICREM(VarianceMaskingPIC):
         for r in range(self.num_rems):
             setattr(self, f"post_latent_{r}", LatentRateReduction(
                 self.ns0, self.dim_chunk, mu_std, rem_dimension))
+
+    def forward(self, x: torch.Tensor, quality: float = 0.0,
+                training: bool = True, checkpoint_ref=None,
+                generator: torch.Generator = None):
+        """The single-quality forward (REM training)."""
+        return self.forward_single_quality(x, quality, training,
+                                           checkpoint_ref, generator)
 
     @property
     def num_rems(self) -> int:

@@ -4,7 +4,9 @@ y[i] = x[i] / sqrt(beta[i] + sum_j gamma[j, i] * x[j]^2)   (inverse: * sqrt)
 
 beta and gamma are stored in the non-negative reparametrised form of
 ``entropy.ops.nn_param_*``, as in the JAX package. The normalization math
-runs in float32 whatever the input dtype, through ``gdn_kernel.gdn``.
+runs in float32 whatever the input dtype, through
+``gdn_kernel.gdn_differentiable``: the fused kernel, with its closed-form
+backward when a gradient is asked for.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import torch
 from torch import nn
 
 from ..entropy.ops import nn_param_apply, nn_param_init
-from .gdn_kernel import gdn
+from .gdn_kernel import gdn_differentiable
 
 _BETA_MIN = 1e-6
 _GAMMA_INIT = 0.1
@@ -30,5 +32,6 @@ class GDN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         beta = nn_param_apply(self.beta, _BETA_MIN)
         gamma = nn_param_apply(self.gamma, 0.0)
-        y = gdn(x.float().contiguous(), gamma, beta, self.inverse)
+        y = gdn_differentiable(x.float().contiguous(), gamma, beta,
+                               self.inverse)
         return y.to(x.dtype)

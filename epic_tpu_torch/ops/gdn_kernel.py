@@ -1,15 +1,24 @@
-"""Fused GDN / inverse GDN: the CUDA kernel ``csrc/gdn.cu`` and its plain
-PyTorch version.
+"""Fused GDN / inverse GDN: the CUDA kernels ``csrc/gdn.cu`` (forward) and
+``csrc/gdn_bwd.cu`` (backward), their plain PyTorch versions, and the
+autograd function that joins them.
 
 ``gdn(x, gamma, beta, inverse)`` computes, over the last axis of x,
 ``y = x * rsqrt(x^2 @ gamma + beta)`` (GDN) or ``x * sqrt(...)`` (inverse):
 for a tensor on the CPU with ``gdn_plain``; for a CUDA tensor with the
-hand-written kernel (tensor cores, mma.sync 3xTF32), or it raises. The
-kernel is compiled by ``nvcc`` from the repository's source at first use
-into ``epic_tpu_torch/_build/`` and bound with ctypes once; a launch costs
-no more host work than the checks, the output allocation and the ctypes
-call. ``gdn.launches`` counts kernel launches by kind, under a lock: the
-sweep pipeline launches from several threads at once.
+hand-written kernel (tensor cores, mma.sync 3xTF32), or it raises.
+``gdn_backward(x, gamma, beta, g, inverse)`` gives (dx, dgamma, dbeta) in
+closed form: on the CPU with ``gdn_backward_plain``; on a CUDA tensor the
+backward kernel writes dx and the row term u, and dgamma, dbeta are two
+library reductions over u. ``gdn_differentiable`` is ``gdn`` with that
+backward attached (a ``torch.autograd.Function``); where no gradient is
+asked for it is ``gdn`` itself, with nothing saved.
+
+Each kernel is compiled by ``nvcc`` from the repository's source (and the
+helpers both share, ``csrc/gdn_common.cuh``) at first use into ``epic_tpu_torch/_build/`` and bound with ctypes once; a launch
+costs no more host work than the checks, the output allocation and the
+ctypes call. ``gdn.launches`` and ``gdn_backward.launches`` count kernel
+launches by kind, under a lock: the sweep pipeline launches from several
+threads at once.
 """
 
 from __future__ import annotations
@@ -24,10 +33,21 @@ import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "gdn.cu")
+BACKWARD_SOURCE = os.path.join(_PKG, "csrc", "gdn_bwd.cu")
+HEADER = os.path.join(_PKG, "csrc", "gdn_common.cuh")  # both sources' helpers
 _BUILD_DIR = os.path.join(_PKG, "_build")
-MAX_CHANNELS = 192  # csrc/gdn.cu keeps gamma and two x tiles in shared memory
+MAX_CHANNELS = 192  # the kernels keep gamma and two tiles in shared memory
 _LOCK = threading.Lock()
-_LIB: ctypes.CDLL | None = None
+_LIBS: dict = {}
+_PTR, _I64, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# the C entry point of each source and its argument types
+_ENTRY = {
+    SOURCE: ("epic_gdn_forward",
+             [_PTR, _PTR, _PTR, _PTR, _I64, _INT, _INT, _PTR]),
+    BACKWARD_SOURCE: ("epic_gdn_backward",
+                      [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _INT, _INT,
+                       _PTR]),
+}
 
 
 def gdn_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -43,40 +63,102 @@ def _nvcc() -> str:
     return path if os.path.exists(path) else "nvcc"
 
 
-def build_library() -> str:
-    """Compile ``csrc/gdn.cu`` for sm_90a unless it is built; returns the
-    shared library's path (keyed by a hash of the source)."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    path = os.path.join(_BUILD_DIR, f"libepic_gdn_{digest}.so")
+def gdn_backward_rows_plain(x: torch.Tensor, gamma: torch.Tensor,
+                            beta: torch.Tensor, g: torch.Tensor,
+                            inverse: bool = False):
+    """What the backward kernel computes, over rows [R, C] of x and the
+    incoming gradient g: (dx, u). With n = x^2 @ gamma + beta:
+    GDN:  u = g x n^-3/2, dx = g n^-1/2 - x (u @ gamma^T);
+    IGDN: u = g x n^-1/2, dx = g n^1/2 + x (u @ gamma^T)."""
+    n = (x * x) @ gamma + beta
+    if inverse:
+        sqrt_n = torch.sqrt(n)
+        u = g * x / sqrt_n
+        return g * sqrt_n + x * (u @ gamma.T), u
+    inv_sqrt = torch.rsqrt(n)
+    u = g * x * inv_sqrt ** 3
+    return g * inv_sqrt - x * (u @ gamma.T), u
+
+
+def gdn_backward_plain(x: torch.Tensor, gamma: torch.Tensor,
+                       beta: torch.Tensor, g: torch.Tensor,
+                       inverse: bool = False):
+    """The closed-form vector-Jacobian product of ``gdn_plain`` for the
+    incoming gradient g (the JAX package's ``pallas_gdn._bwd``): dx and u
+    as ``gdn_backward_rows_plain``, dgamma = -/+ 1/2 (x^2)^T @ u, dbeta =
+    -/+ 1/2 sum u. Returns (dx, dgamma, dbeta)."""
+    c = x.shape[-1]
+    x2 = x.reshape(-1, c)
+    dx, u = gdn_backward_rows_plain(x2, gamma, beta, g.reshape(-1, c),
+                                    inverse)
+    return (dx.reshape(x.shape),) + _weight_grads(x2, u, inverse)
+
+
+def _weight_grads(x2: torch.Tensor, u: torch.Tensor, inverse: bool):
+    """dgamma = -/+ 1/2 (x^2)^T @ u and dbeta = -/+ 1/2 sum u, over [R, C]
+    rows."""
+    s = 0.5 if inverse else -0.5
+    return s * ((x2 * x2).T @ u), s * u.sum(dim=0)
+
+
+def build_library(source: str = SOURCE) -> str:
+    """Compile one of the kernels' sources for sm_90a unless it is built;
+    returns the shared library's path (keyed by a hash of the source and
+    of the header it includes)."""
+    h = hashlib.sha256()
+    for path in (source, HEADER):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
+    stem = os.path.splitext(os.path.basename(source))[0]
+    path = os.path.join(_BUILD_DIR, f"libepic_{stem}_{digest}.so")
     if not os.path.exists(path):
         os.makedirs(_BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", SOURCE, "-o", tmp]
+               "-Xptxas", "-v", source, "-o", tmp]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed:\n{proc.stderr}")
-        with open(os.path.join(_BUILD_DIR, "gdn_ptxas.txt"), "w") as f:
+        with open(os.path.join(_BUILD_DIR, f"{stem}_ptxas.txt"), "w") as f:
             f.write(proc.stderr)
         os.replace(tmp, path)
     return path
 
 
-def _library() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
+def _entry(source: str):
+    """The bound C entry point of a source's library (built once)."""
+    fn = _LIBS.get(source)
+    if fn is None:
         with _LOCK:
-            if _LIB is None:
-                lib = ctypes.CDLL(build_library())
-                lib.epic_gdn_forward.restype = ctypes.c_int
-                lib.epic_gdn_forward.argtypes = [
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_void_p]
-                _LIB = lib
-    return _LIB
+            fn = _LIBS.get(source)
+            if fn is None:
+                name, argtypes = _ENTRY[source]
+                fn = getattr(ctypes.CDLL(build_library(source)), name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = argtypes
+                _LIBS[source] = fn
+    return fn
+
+
+def _check(name: str, x: torch.Tensor, gamma: torch.Tensor,
+           beta: torch.Tensor, *others: torch.Tensor) -> None:
+    """Raise unless x (and ``others``, of x's shape), gamma and beta are
+    contiguous float32 tensors on x's CUDA device with 1 <= C <=
+    MAX_CHANNELS."""
+    dev, c, f32 = x.device, x.shape[-1], torch.float32
+    ts = (x, gamma, beta) + others
+    if not all(t.dtype is f32 and t.device == dev and t.is_contiguous()
+               for t in ts):
+        raise ValueError(f"{name}: inputs must be contiguous float32 "
+                         f"tensors on {dev}")
+    if (gamma.shape != (c, c) or beta.shape != (c,)
+            or any(t.shape != x.shape for t in others)
+            or not 0 < c <= MAX_CHANNELS):
+        raise ValueError(f"{name}: bad shapes x {tuple(x.shape)}, gamma "
+                         f"{tuple(gamma.shape)}, beta {tuple(beta.shape)} "
+                         f"(1 <= C <= {MAX_CHANNELS})")
 
 
 def gdn(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -88,31 +170,19 @@ def gdn(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         return gdn_plain(x, gamma, beta, inverse)
     if dev.type != "cuda":
         raise ValueError(f"gdn: unsupported device {dev}")
-    c = x.shape[-1]
-    f32 = torch.float32
-    if not (x.dtype is f32 and gamma.dtype is f32 and beta.dtype is f32
-            and gamma.device == dev and beta.device == dev
-            and x.is_contiguous() and gamma.is_contiguous()
-            and beta.is_contiguous()):
-        raise ValueError(f"gdn: x, gamma and beta must be contiguous "
-                         f"float32 tensors on {dev}")
-    if (gamma.shape != (c, c) or beta.shape != (c,)
-            or not 0 < c <= MAX_CHANNELS):
-        raise ValueError(f"gdn: bad shapes x {tuple(x.shape)}, gamma "
-                         f"{tuple(gamma.shape)}, beta {tuple(beta.shape)} "
-                         f"(1 <= C <= {MAX_CHANNELS})")
+    _check("gdn", x, gamma, beta)
     index = dev.index
     if index != torch.cuda.current_device():
         with torch.cuda.device(index):
             return gdn(x, gamma, beta, inverse)
-    lib = _library()
+    c = x.shape[-1]
     y = torch.empty_like(x)
     # the raw handle of PyTorch's current stream (what
     # torch.cuda.current_stream().cuda_stream gives, without building a
     # Stream object on every call)
-    rc = lib.epic_gdn_forward(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                              y.data_ptr(), x.numel() // c, c, int(inverse),
-                              torch._C._cuda_getCurrentRawStream(index))
+    rc = _entry(SOURCE)(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                        y.data_ptr(), x.numel() // c, c, int(inverse),
+                        torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"gdn kernel launch failed: CUDA error {rc}")
     gdn.launches.add("igdn" if inverse else "gdn")
@@ -133,3 +203,79 @@ class LaunchCounts(dict):
 
 
 gdn.launches = LaunchCounts("gdn", "igdn")
+
+
+def gdn_backward_rows(x: torch.Tensor, gamma: torch.Tensor,
+                      beta: torch.Tensor, g: torch.Tensor,
+                      inverse: bool = False):
+    """The backward kernel over the last axis of x and g (contiguous float32
+    on a CUDA device, 1 <= C <= MAX_CHANNELS): (dx, u) as
+    ``gdn_backward_rows_plain``, each of x's shape. One launch."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"gdn_backward_rows: unsupported device {dev}")
+    _check("gdn_backward", x, gamma, beta, g)
+    index = dev.index
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return gdn_backward_rows(x, gamma, beta, g, inverse)
+    c = x.shape[-1]
+    dx = torch.empty_like(x)
+    u = torch.empty_like(x)
+    rc = _entry(BACKWARD_SOURCE)(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), g.data_ptr(),
+        dx.data_ptr(), u.data_ptr(), x.numel() // c, c, int(inverse),
+        torch._C._cuda_getCurrentRawStream(index))
+    if rc != 0:
+        raise RuntimeError(f"gdn backward kernel launch failed: CUDA error "
+                           f"{rc}")
+    gdn_backward.launches.add("igdn" if inverse else "gdn")
+    return dx, u
+
+
+def gdn_backward(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                 g: torch.Tensor, inverse: bool = False):
+    """(dx, dgamma, dbeta) of ``gdn`` for the incoming gradient g (x's
+    shape): ``gdn_backward_plain`` for a CPU tensor; on a CUDA device the
+    backward kernel writes dx and u (``gdn_backward_rows``), and dgamma,
+    dbeta are reduced from u with ``torch.matmul`` and ``torch.sum``
+    (float32, TF32 off). ``gdn_backward.launches`` counts the kernel's
+    launches."""
+    if x.device.type == "cpu":
+        return gdn_backward_plain(x, gamma, beta, g, inverse)
+    c = x.shape[-1]
+    dx, u = gdn_backward_rows(x, gamma, beta, g, inverse)
+    return (dx,) + _weight_grads(x.reshape(-1, c), u.reshape(-1, c), inverse)
+
+
+gdn_backward.launches = LaunchCounts("gdn", "igdn")
+
+
+class _GDNFunction(torch.autograd.Function):
+    """``gdn`` forward, ``gdn_backward`` backward (the JAX package's
+    ``gdn_pallas`` custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, inverse):
+        ctx.inverse = inverse
+        ctx.save_for_backward(x, gamma, beta)
+        return gdn(x, gamma, beta, inverse)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, beta = ctx.saved_tensors
+        dx, dgamma, dbeta = gdn_backward(x, gamma, beta, g.contiguous(),
+                                         ctx.inverse)
+        return dx, dgamma, dbeta, None
+
+
+def gdn_differentiable(x: torch.Tensor, gamma: torch.Tensor,
+                       beta: torch.Tensor,
+                       inverse: bool = False) -> torch.Tensor:
+    """``gdn`` with its closed-form backward attached when a gradient is
+    asked for (grad mode on and an input that requires it); otherwise
+    ``gdn`` itself: the same kernel and launches, nothing saved."""
+    if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
+                                    or beta.requires_grad):
+        return _GDNFunction.apply(x, gamma, beta, inverse)
+    return gdn(x, gamma, beta, inverse)

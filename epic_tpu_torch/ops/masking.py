@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from ..entropy.ops import ste_round
+
 
 def quantile_thresholds(sorted_rows: torch.Tensor,
                         p_keep: float) -> torch.Tensor:
@@ -78,3 +80,9 @@ def shell_ids(scales: torch.Tensor, q_list) -> torch.Tensor:
             thr = quantile_thresholds(sorted_rows, q * 0.1)
             admitted += (flat >= thr[:, None]).to(torch.int32)
     return (len(q_list) - admitted).to(torch.int8).reshape(scales.shape)
+
+
+def apply_noise_mask(mask: torch.Tensor, training: bool) -> torch.Tensor:
+    """Round a mask, straight through in training. A no-op on the binary
+    point-based-std masks; kept for learnable mask policies."""
+    return ste_round(mask) if training else torch.round(mask)

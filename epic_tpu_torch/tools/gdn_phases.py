@@ -24,7 +24,7 @@ import subprocess
 import numpy as np
 import torch
 
-from ..ops.gdn_kernel import SOURCE, _BUILD_DIR, _nvcc
+from ..ops.gdn_kernel import HEADER, SOURCE, _BUILD_DIR, _nvcc
 
 _TIMERS = [
     ("#include <cstdint>\n",
@@ -97,7 +97,8 @@ _VARIANTS = {
 def _edit(text: str, edits) -> str:
     for old, new in edits:
         if old not in text:
-            raise RuntimeError(f"csrc/gdn.cu no longer holds {old[:40]!r}")
+            raise RuntimeError(f"csrc/gdn.cu (with gdn_common.cuh) no "
+                               f"longer holds {old[:40]!r}")
         text = text.replace(old, new)
     return text
 
@@ -105,7 +106,10 @@ def _edit(text: str, edits) -> str:
 def build():
     """Compile every variant (one nvcc each, all started together); returns
     {name: ctypes library}."""
-    src = _edit(open(SOURCE).read(), _TIMERS) + _READ
+    # the shared header inlined, so that the edits reach its helpers too
+    src = _edit(open(SOURCE).read(), [('#include "gdn_common.cuh"\n',
+                                       open(HEADER).read())])
+    src = _edit(src, _TIMERS) + _READ
     out = os.path.join(_BUILD_DIR, "phases")
     os.makedirs(out, exist_ok=True)
     procs = {}
