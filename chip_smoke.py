@@ -76,16 +76,43 @@ Phases, one progress line each (flush=True):
     counted over the whole run, steps/s and peak memory per stage; the
     rems checkpoint loaded by ``load_checkpoint`` bitwise the trained
     weights, and an encode / decode of levels 0..15 with it bitwise
-    between encoder and decoder.
+    between encoder and decoder;
+10. WACNN codec: the full-width ``cnn`` model (N=192, M=320, dim_chunk
+    32, 10 slices, bf16, random weights from seed 0) on the 768x512
+    image at batch 1 and 2: ``compress(buffered=True)`` gives one y and
+    one z stream per image, ``decompress`` is bitwise the encoder's y_hat
+    and x_hat; walls printed;
+11. WACNN training: ``train_device.run(--model cnn)``, first_train for 3
+    steps at batch 16, patch 256: finite losses, steps/s, peak memory;
+    its checkpoint loaded bitwise and coded with;
+12. file CLI: ``cli.codec`` on a seeded 768x512 image in two PNG files,
+    one written by ``data/png.py`` (filter 0) and one whose rows use all
+    five filters (``read_png`` timed on each): compress each with phase
+    9's rems checkpoint (equal files), ``python -m
+    epic_tpu_torch.cli.codec info``, decompress at levels 0 / 7 / 15, each
+    PNG bitwise the quantised ``progressive_decode`` output (checkpoint
+    latents rebuilt from the file's streams); the filtered PNG with the
+    WACNN checkpoint of phase 11 likewise against its ``decompress``;
+13. RD evaluation: ``rd_sweep`` on 2 synthetic 768x512 images with the
+    flagship ``rem`` model (REMs on), per-level bpp equal to
+    ``progressive_encode``'s bits and non-decreasing; ``compress_with_ac``
+    at 0 / 0.5 / 10;
+14. first_train against the JAX trainer: the losses of 6 float32 steps
+    (``training=False``) on the weights and batch of
+    ``tests/fixtures/first_train_jax.json`` (SHA-256 checked), side by
+    side with the fixture's: within 1% through step 2, at step 3 both
+    above or both below 3x step 2, and falling after it in both.
 
 Each path's kernel launches are counted from zero and must match its count
 (GDN 6 per encode or ``compress``; IGDN 3 per decoded level, 48 for
 levels 0..15, 9 per ``decode_all``, 3 per ``decompress``; 15 per pipelined
-sweep of 4 images; the training launches in phase 9; no inference path
-launches the backward kernel). Any failure raises and exits non-zero. The
-line before the last is the kernels' JSON record; the last line is the
-device record. Needs one CUDA device and no network; writes only into the
-package's build directories and a temporary directory it removes.
+sweep of 4 images; WACNN 3 GDN per ``compress`` and 3 IGDN per
+``decompress``; the training launches in phases 9, 11 and 14; the file CLI
+and RD evaluation in phases 12-13; no inference path launches the
+backward kernel). Any failure raises and exits non-zero. The line before
+the last is the kernels' JSON record; the last line is the device record.
+Needs one CUDA device and no network; writes only into the package's
+build directories and a temporary directory it removes.
 """
 
 from __future__ import annotations
@@ -94,10 +121,13 @@ import hashlib
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -108,7 +138,9 @@ _PEAKS = {"SXM": (67.0, 495.0, 3.35), "PCIe": (51.0, 378.0, 2.0),
           "NVL": (60.0, 417.5, 3.9)}
 # g_a's layers at batch 4 (bench.py's batch) and 1; the IGDN of a decoded
 # level has the same rows; then a training step's (batch 16, patch 256)
-GDN_ROWS = (393_216, 98_304, 24_576, 6_144, 21, 262_144, 65_536, 16_384)
+GDN_ROWS = (393_216, 98_304, 24_576, 6_144, 21, 262_144, 65_536, 16_384,
+            # WACNN at batch 2 (phase 10); first_train at batch 4 (14)
+            196_608, 49_152, 12_288, 4_096)
 # IGDN in progressive_decode_all: 15 levels folded into the batch, at
 # batch 4 (its top layer's 5,898,240 rows are 4.5 GB in float32) and 1
 IGDN_FOLDED_ROWS = (5_898_240, 1_474_560, 368_640, 92_160)
@@ -117,7 +149,7 @@ GDN_C = 192
 REL_TOL = 1e-5
 # the backward kernel at a flagship first_train step (batch 16, patch 256):
 # g_a's GDNs and g_s's IGDNs run at these rows
-GDN_BWD_ROWS = (262_144, 65_536, 16_384)
+GDN_BWD_ROWS = (262_144, 65_536, 16_384, 4_096)  # 4,096: phase 14
 # dx and u of the backward kernel against the plain closed form, norm-wise
 # (max abs error over max abs value)
 BWD_REL_TOL = 1e-5
@@ -958,17 +990,15 @@ def _stage_steps(dev) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_training(smi: str):
+def phase_training(smi: str, work: str):
     """train_device's curriculum at flagship width: first the steps of each
     stage through the package's pieces (_stage_steps); then
     ``cli.train_device.run`` on bench.py-style synthetic images, a few
     steps of each stage with a validation and a checkpoint at each stage's
-    end, launches counted from zero over the whole run; the rems
-    checkpoint loaded by ``load_checkpoint`` bitwise the trained weights,
-    and a progressive encode / decode with them bitwise between encoder
-    and decoder. Returns the run's (forward, backward) launches."""
-    import tempfile
-
+    end (in ``work``/train), launches counted from zero over the whole run;
+    the rems checkpoint loaded by ``load_checkpoint`` bitwise the trained
+    weights, and a progressive encode / decode with them bitwise between
+    encoder and decoder. Returns the run's (forward, backward) launches."""
     import epic_tpu_torch as et
     from epic_tpu_torch.cli import train_device as td
     from epic_tpu_torch.device import resolve_device
@@ -979,44 +1009,44 @@ def phase_training(smi: str):
     _stage_steps(dev)
     log(f"[9 training] stage steps {time.perf_counter() - t0:.1f} s")
     imgs, has_val = _train_images()
-    with tempfile.TemporaryDirectory() as tmp:
-        t = time.perf_counter()
-        res, fwd, bwd = _counted(lambda: td.run(_train_args(tmp), imgs,
-                                                has_val), True)
-        log(f"[9 training] train_device.run {time.perf_counter() - t:.1f} s")
-        want_f, want_b = {"gdn": 0, "igdn": 0}, {"gdn": 0, "igdn": 0}
-        for stage, n in TRAIN_STEPS.items():
-            for k in want_f:
-                # the steps, one validation, and in rems one checkpoint
-                # latent per step
-                no_grad = VAL_FORWARDS + (n if stage == "rems" else 0)
-                want_f[k] += (n * STEP_LAUNCHES[stage][k]
-                              + no_grad * NO_GRAD_LAUNCHES[k])
-                want_b[k] += n * STEP_BACKWARD[stage][k]
-        _expect("9 training", "train_device.run forward", fwd, want_f)
-        _expect("9 training", "train_device.run backward", bwd, want_b)
-        for stage, r in res["stages"].items():
-            m = r["metrics"]
-            if not (math.isfinite(m["loss"]) and math.isfinite(
-                    r["val"]["loss"])):
-                raise AssertionError(f"{stage}: loss {m['loss']} val "
-                                     f"{r['val']['loss']}")
-            log(f"[9 training] {stage}: {r['steps']} steps, "
-                f"{r['steps_per_s']:.3f} steps/s (train steps alone, batch "
-                f"{TRAIN_BATCH} x {TRAIN_PATCH}^2), stage {r['seconds']:.1f}"
-                f" s, peak memory {r['peak_mem_bytes'] / 2**30:.2f} GiB, "
-                f"last loss {m['loss']:.4f} bpp {m['bpp_loss']:.4f} aux "
-                f"{m['aux_loss']:.2f} grad norm {m['grad_norm']:.3e}, val "
-                f"loss {r['val']['loss']:.4f} [{smi}]")
-        trained = {k: v.detach().float().cpu()
-                   for k, v in res["model"].state_dict().items()}
-        loaded, _, ck_step = et.load_checkpoint(os.path.join(tmp, "rems"))
-        if ck_step != TRAIN_STEPS["rems"] or not all(
-                torch.equal(v, trained[k])
-                for k, v in loaded.state_dict().items()):
-            raise AssertionError("the rems checkpoint differs from the "
-                                 "trained weights")
-        nbytes = os.path.getsize(os.path.join(tmp, "rems", "last.npz"))
+    tmp = os.path.join(work, "train")
+    t = time.perf_counter()
+    res, fwd, bwd = _counted(lambda: td.run(_train_args(tmp), imgs,
+                                            has_val), True)
+    log(f"[9 training] train_device.run {time.perf_counter() - t:.1f} s")
+    want_f, want_b = {"gdn": 0, "igdn": 0}, {"gdn": 0, "igdn": 0}
+    for stage, n in TRAIN_STEPS.items():
+        for k in want_f:
+            # the steps, one validation, and in rems one checkpoint
+            # latent per step
+            no_grad = VAL_FORWARDS + (n if stage == "rems" else 0)
+            want_f[k] += (n * STEP_LAUNCHES[stage][k]
+                          + no_grad * NO_GRAD_LAUNCHES[k])
+            want_b[k] += n * STEP_BACKWARD[stage][k]
+    _expect("9 training", "train_device.run forward", fwd, want_f)
+    _expect("9 training", "train_device.run backward", bwd, want_b)
+    for stage, r in res["stages"].items():
+        m = r["metrics"]
+        if not (math.isfinite(m["loss"]) and math.isfinite(
+                r["val"]["loss"])):
+            raise AssertionError(f"{stage}: loss {m['loss']} val "
+                                 f"{r['val']['loss']}")
+        log(f"[9 training] {stage}: {r['steps']} steps, "
+            f"{r['steps_per_s']:.3f} steps/s (train steps alone, batch "
+            f"{TRAIN_BATCH} x {TRAIN_PATCH}^2), stage {r['seconds']:.1f}"
+            f" s, peak memory {r['peak_mem_bytes'] / 2**30:.2f} GiB, "
+            f"last loss {m['loss']:.4f} bpp {m['bpp_loss']:.4f} aux "
+            f"{m['aux_loss']:.2f} grad norm {m['grad_norm']:.3e}, val "
+            f"loss {r['val']['loss']:.4f} [{smi}]")
+    trained = {k: v.detach().float().cpu()
+               for k, v in res["model"].state_dict().items()}
+    loaded, _, ck_step = et.load_checkpoint(os.path.join(tmp, "rems"))
+    if ck_step != TRAIN_STEPS["rems"] or not all(
+            torch.equal(v, trained[k])
+            for k, v in loaded.state_dict().items()):
+        raise AssertionError("the rems checkpoint differs from the "
+                             "trained weights")
+    nbytes = os.path.getsize(os.path.join(tmp, "rems", "last.npz"))
     del res
     torch.cuda.empty_cache()
     log(f"[9 training] rems checkpoint ({nbytes} bytes) loads bitwise the "
@@ -1026,6 +1056,362 @@ def phase_training(smi: str):
     bs, state, outs, _ = _encode_and_decode_levels("9 training", codec, x,
                                                    True)
     _check_levels("9 training", codec, x, bs, state, outs)
+    return fwd, bwd
+
+
+# phases 10-11: WACNN at full width (artifacts/ckpt_r5_cnn/config.json)
+WACNN = dict(n=192, m=320, dim_chunk=32,
+             param_net_widths=(224, 176, 128, 64), compute_dtype="bfloat16")
+CNN_STEPS = 3
+# one WACNN forward: g_a (3 GDN), then g_s (3 IGDN); a training step
+# launches as many backward. A validation: 2 batches x 1 quality x (the
+# eval forward + the loss forward), without gradient
+CNN_LAUNCHES = {"gdn": 3, "igdn": 3}
+CNN_VAL_FORWARDS = 4
+ZERO = {"gdn": 0, "igdn": 0}
+
+
+def _add(total: dict, n: dict) -> None:
+    for k in total:
+        total[k] += n[k]
+
+
+def _wacnn_round_trip(tag: str, codec, x) -> dict:
+    """compress(buffered=True) then decompress of x, launches counted (3 GDN,
+    then 3 IGDN): one y stream and one z stream per image; y_hat and x_hat
+    bitwise the encoder's. Returns the launches by path."""
+    b = x.shape[0]
+    t = time.perf_counter()
+    out, n_c = _counted(lambda: codec.compress(x, 0, return_latents=True,
+                                               buffered=True))
+    t_c = time.perf_counter() - t
+    t = time.perf_counter()
+    dec, n_d = _counted(lambda: codec.decompress(out))
+    t_d = time.perf_counter() - t
+    _expect(tag, f"compress batch {b}", n_c, {"gdn": 3, "igdn": 0})
+    _expect(tag, f"decompress batch {b}", n_d, {"gdn": 0, "igdn": 3})
+    y_strings, z_strings = out["strings"]
+    if not (out["buffered"] and len(y_strings) == 1
+            and len(y_strings[0]) == len(z_strings) == b):
+        raise AssertionError(f"{tag}: not one y and one z stream per image")
+    with torch.no_grad():
+        x_enc = torch.clamp(codec.model.synthesize_base(out["y_hat_base"]),
+                            0.0, 1.0)
+    if not (torch.equal(dec["y_hat"], out["y_hat_base"])
+            and torch.equal(dec["x_hat"], x_enc)):
+        raise AssertionError(f"{tag}: decompress differs from the encoder")
+    nbytes = sum(len(m) for m in y_strings[0] + z_strings)
+    log(f"[{tag}] batch {b}: compress {t_c:.4f} s, decompress {t_d:.4f} s, "
+        f"{nbytes * 8 / (b * x.shape[1] * x.shape[2]):.4f} bpp; y_hat and "
+        "x_hat bitwise the encoder's")
+    return {"compress": n_c, "decompress": n_d}
+
+
+def phase_wacnn_codec() -> dict:
+    """WACNN (full width, bf16, seed 0) on the synthetic 768x512 image at
+    batch 1 and 2 (the image and its mirror); returns the launches by
+    path."""
+    import epic_tpu_torch as et
+    from epic_tpu_torch.tools.workload import images
+
+    t = time.perf_counter()
+    codec = et.PICCodec(et.get_model("cnn", **WACNN).init_weights(0),
+                        device="cuda")
+    x, warm = images()
+    log(f"[10 wacnn] model + codec set up in {time.perf_counter() - t:.1f} "
+        f"s ({sum(p.numel() for p in codec.model.parameters()) / 1e6:.1f} M "
+        "params)")
+    _wacnn_round_trip("10 wacnn", codec, warm)  # warm-up
+    launches = {"wacnn_compress": dict(ZERO), "wacnn_decompress": dict(ZERO)}
+    for xb in (x, np.concatenate([x, warm])):
+        n = _wacnn_round_trip("10 wacnn", codec, xb)
+        _add(launches["wacnn_compress"], n["compress"])
+        _add(launches["wacnn_decompress"], n["decompress"])
+    return launches
+
+
+def phase_wacnn_training(smi: str, work: str):
+    """``cli.train_device.run(--model cnn)``: first_train for CNN_STEPS
+    steps at batch 16, patch 256, with a validation and a checkpoint at the
+    end (in ``work``/cnn); launches counted over the run; every loss finite;
+    the checkpoint loaded by ``load_checkpoint`` bitwise the trained
+    weights and coded with (compress / decompress bitwise). Returns
+    (forward launches, backward launches, the checkpoint's directory)."""
+    import epic_tpu_torch as et
+    from epic_tpu_torch.cli import train_device as td
+    from epic_tpu_torch.tools.workload import images
+
+    save = os.path.join(work, "cnn")
+    args = td.parse_args([
+        "--save_path", save, "--model", "cnn", "--N", "192", "--M", "320",
+        "--dim_chunk", "32", "--param_net_widths", "224", "176", "128", "64",
+        "--compute_dtype", "bfloat16", "--batch_size", str(TRAIN_BATCH),
+        "--patch_size", str(TRAIN_PATCH), "--steps",
+        f"first_train={CNN_STEPS}", "--log_every", "1", "--val_every",
+        "1000", "--ckpt_every", "1000"])
+    imgs, has_val = _train_images()
+    t = time.perf_counter()
+    res, fwd, bwd = _counted(lambda: td.run(args, imgs, has_val), True)
+    log(f"[11 wacnn training] train_device.run {time.perf_counter() - t:.1f}"
+        " s")
+    _expect("11 wacnn training", "run forward", fwd,
+            {k: (CNN_STEPS + CNN_VAL_FORWARDS) * v
+             for k, v in CNN_LAUNCHES.items()})
+    _expect("11 wacnn training", "run backward", bwd,
+            {k: CNN_STEPS * v for k, v in CNN_LAUNCHES.items()})
+    r = res["stages"]["first_train"]
+    m = r["metrics"]
+    losses = [json.loads(line).get("loss") for line in open(
+        os.path.join(save, "train_log.jsonl"))]
+    losses = [v for v in losses if v is not None]
+    if len(losses) != CNN_STEPS or not all(map(math.isfinite, losses)) \
+            or not math.isfinite(r["val"]["loss"]):
+        raise AssertionError(f"wacnn losses {losses}, val {r['val']}")
+    log(f"[11 wacnn training] first_train: losses "
+        + " ".join(f"{v:.4f}" for v in losses)
+        + f"; {r['steps_per_s']:.3f} steps/s (train steps alone, batch "
+        f"{TRAIN_BATCH} x {TRAIN_PATCH}^2), peak memory "
+        f"{r['peak_mem_bytes'] / 2**30:.2f} GiB, bpp {m['bpp_loss']:.4f}, "
+        f"val loss {r['val']['loss']:.4f} [{smi}]")
+    ckpt = os.path.join(save, "first_train")
+    trained = {k: v.detach().float().cpu()
+               for k, v in res["model"].state_dict().items()}
+    del res
+    loaded, cfg, step = et.load_checkpoint(ckpt)
+    if cfg["model"] != "cnn" or step != CNN_STEPS or not all(
+            torch.equal(v, trained[k])
+            for k, v in loaded.state_dict().items()):
+        raise AssertionError("the WACNN checkpoint differs from the trained "
+                             "weights")
+    x, _ = images()
+    _wacnn_round_trip("11 wacnn training", et.PICCodec(loaded, "cuda"), x)
+    torch.cuda.empty_cache()
+    return fwd, bwd, ckpt
+
+
+def _write_filtered_png(path: str, rgb: np.ndarray) -> None:
+    """An RGB8 PNG whose row y uses filter y % 5 (None, Sub, Up, Average,
+    Paeth), as encoders that choose a filter per row write them."""
+    h, w, _ = rgb.shape
+    cur = rgb.reshape(h, w * 3).astype(np.int16)
+    up = np.concatenate([np.zeros((1, w * 3), np.int16), cur[:-1]])
+    left = np.pad(cur, ((0, 0), (3, 0)))[:, :-3]
+    upleft = np.pad(up, ((0, 0), (3, 0)))[:, :-3]
+    pa, pb = np.abs(up - upleft), np.abs(left - upleft)
+    pc = np.abs(left + up - 2 * upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, upleft))
+    kind = (np.arange(h) % 5)[:, None]
+    pred = np.choose(kind, [0, left, up, (left + up) >> 1, paeth])
+    rows = np.concatenate([kind.astype(np.uint8),
+                           ((cur - pred) & 0xFF).astype(np.uint8)], axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+                + chunk(b"IEND", b""))
+
+
+def phase_file_cli(work: str, rems_ckpt: str, cnn_ckpt: str) -> dict:
+    """``epic_tpu_torch.cli.codec`` on a seeded 768x512 image in two PNG
+    files, one from the port's writer (filter 0) and one whose rows use all
+    five filters: compress each with phase 9's rems checkpoint (equal
+    files), ``info`` (as ``python -m``), decompress at levels 0, 7 and 15,
+    each PNG read back bitwise the quantised ``progressive_decode`` output
+    at that level (checkpoint latents from the file's check-level streams);
+    then the filtered PNG with the WACNN checkpoint of phase 11, its PNG
+    bitwise its ``decompress`` output. Returns the launches by path."""
+    import epic_tpu_torch as et
+    from epic_tpu_torch.cli import codec as cli
+    from epic_tpu_torch.data.png import read_png, to_uint8, write_png
+    from epic_tpu_torch.tools.workload import H, W
+    from epic_tpu_torch.utils.synthetic import synthetic_image
+
+    img = os.path.join(work, "image.png")
+    filtered = os.path.join(work, "filtered.png")
+    u8 = np.round(synthetic_image(H, W, seed=3)[0] * 255).astype(np.uint8)
+    write_png(img, u8)
+    _write_filtered_png(filtered, u8)
+    for path in (img, filtered):
+        t = time.perf_counter()
+        got = read_png(path)
+        log(f"[12 file cli] read_png {os.path.basename(path)} ({W}x{H}): "
+            f"{(time.perf_counter() - t) * 1e3:.1f} ms")
+        if not np.array_equal(got, u8):
+            raise AssertionError(f"{path}: the PNG reader's pixels differ")
+    launches = {"cli_compress": dict(ZERO), "cli_decompress": dict(ZERO)}
+
+    def run(argv, expect):
+        t = time.perf_counter()
+        out, n = _counted(lambda: cli.main(argv))
+        log(f"[12 file cli] {argv[0]} {os.path.basename(argv[2])} "
+            f"{' '.join(argv[3:])}: {time.perf_counter() - t:.2f} s")
+        _expect("12 file cli", argv[0], n, expect)
+        _add(launches[f"cli_{argv[0]}"], n)
+        return out
+
+    ck = ["--checkpoint", rems_ckpt]
+    epic = os.path.join(work, "rem.epic")
+    # two check-level compresses, then the progressive encode: g_a_0 and
+    # g_a_1 each time
+    run(["compress", img, epic] + ck, {"gdn": 18, "igdn": 0})
+    run(["compress", filtered, epic + "2"] + ck, {"gdn": 18, "igdn": 0})
+    with open(epic, "rb") as f, open(epic + "2", "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError("the two PNG files code to different files")
+    info = subprocess.run([sys.executable, "-m", "epic_tpu_torch.cli.codec",
+                           "info", epic], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()
+    log("[12 file cli] python -m epic_tpu_torch.cli.codec info: " + info[0])
+    codec = et.PICCodec(et.load_checkpoint(rems_ckpt)[0], device="cuda")
+    with open(epic, "rb") as f:
+        bs = et.load_bitstreams(f.read())
+    with torch.no_grad():
+        ckpts = cli.decode_checkpoints(codec, bs["ckpt_streams"])
+    for level in (0, 7, 15):
+        png = os.path.join(work, f"rem_level{level}.png")
+        # the two check-level latents (g_s each), then the level's g_s
+        got = run(["decompress", epic, png, "--level", str(level)] + ck,
+                  {"gdn": 0, "igdn": 9})
+        ref = et.progressive_decode(codec, bs, level, {}, rems=True,
+                                    y_checkpoints=ckpts)["x_hat"]
+        ref = to_uint8(ref[0].float().cpu().numpy())
+        if not (np.array_equal(read_png(png), ref)
+                and np.array_equal(got, ref)):
+            raise AssertionError(f"level {level}: the decoded PNG differs "
+                                 "from progressive_decode")
+    ck = ["--checkpoint", cnn_ckpt]
+    epic = os.path.join(work, "cnn.epic")
+    run(["compress", filtered, epic] + ck, {"gdn": 3, "igdn": 0})
+    png = os.path.join(work, "cnn.png")
+    run(["decompress", epic, png] + ck, {"gdn": 0, "igdn": 3})
+    codec = et.PICCodec(et.load_checkpoint(cnn_ckpt)[0], device="cuda")
+    with open(epic, "rb") as f:
+        st = dict(et.load_bitstreams(f.read())["ckpt_streams"][0])
+    st["shape"] = tuple(st["shape"])
+    ref = to_uint8(codec.decompress(st)["x_hat"][0].float().cpu().numpy())
+    if not np.array_equal(read_png(png), ref):
+        raise AssertionError("the WACNN PNG differs from decompress")
+    log(f"[12 file cli] rem levels 0 / 7 / 15 and WACNN: each PNG bitwise "
+        f"the codec's output ({os.path.getsize(epic)} bytes WACNN file)")
+    return launches
+
+
+def phase_rd_eval() -> dict:
+    """``training.evaluate`` on the flagship rem model (random weights,
+    REMs on) over 2 synthetic 768x512 images: ``rd_sweep`` (per-level bpp
+    equal to what progressive_encode's bits give, non-decreasing over the
+    16 levels) and ``compress_with_ac`` at 0 / 0.5 / 10. Returns the
+    launches by path."""
+    import epic_tpu_torch as et
+    from epic_tpu_torch.tools.workload import H, W, full_width_codec
+    from epic_tpu_torch.training.evaluate import (compress_with_ac,
+                                                  extract_checkpoints,
+                                                  rd_sweep)
+    from epic_tpu_torch.utils.synthetic import synthetic_image
+
+    codec = full_width_codec(0)
+    imgs = [synthetic_image(H, W, seed=s)[0] for s in (1, 2)]
+    cl = list(codec.model.check_levels)
+    q = et.DEFAULT_Q_LIST
+    t = time.perf_counter()
+    res, n_rd = _counted(lambda: rd_sweep(codec, imgs, q, check_levels=cl))
+    log(f"[13 rd eval] rd_sweep of 2 images {time.perf_counter() - t:.2f} s "
+        f"(decode_all {res['decode_all_time']:.3f} s per image)")
+    # per image: two checkpoint latents + the encode (g_a_0, g_a_1 each),
+    # decode_all (9 IGDN)
+    _expect("13 rd eval", "rd_sweep", n_rd, {"gdn": 36, "igdn": 18})
+    want = np.zeros(len(q) + 1)
+    for img in imgs:
+        x = codec.as_input(img)[None]
+        _, bits = et.progressive_encode(codec, x, q, rems=True,
+                                        y_checkpoints=extract_checkpoints(
+                                            codec, x, cl))
+        for j in range(len(want)):
+            want[j] += (bits[0] + bits[1] + sum(bits[2][:j])) / (H * W)
+    want = (want / len(imgs)).tolist()
+    if res["bpp"] != want or res["bpp"] != sorted(res["bpp"]) or not all(
+            map(math.isfinite, res["psnr"] + res["ms_ssim_db"])):
+        raise AssertionError(f"rd_sweep bpp {res['bpp']} (want {want}), "
+                             f"psnr {res['psnr']}")
+    log("[13 rd eval] rd_sweep per level (random weights): bpp "
+        + " ".join(f"{v:.4f}" for v in res["bpp"]) + "; PSNR "
+        + " ".join(f"{v:.3f}" for v in res["psnr"]) + "; MS-SSIM dB "
+        + " ".join(f"{v:.3f}" for v in res["ms_ssim_db"])
+        + "; bpp equal to progressive_encode's bits, non-decreasing")
+    prs = (0.0, 0.5, 10.0)
+    t = time.perf_counter()
+    ac, n_ac = _counted(lambda: compress_with_ac(codec, imgs, prs,
+                                                 check_levels=cl))
+    log(f"[13 rd eval] compress_with_ac {time.perf_counter() - t:.2f} s: "
+        + ", ".join(f"q={p} bpp {b:.4f} psnr {s:.3f} decode {d:.4f} s"
+                    for p, b, s, d in zip(prs, ac["bpp"], ac["psnr"],
+                                          ac["decode_time"])))
+    # per image: two checkpoint latents, then per quality compress (6 GDN)
+    # and decompress (3 IGDN)
+    _expect("13 rd eval", "compress_with_ac", n_ac,
+            {"gdn": 2 * (12 + 6 * len(prs)), "igdn": 2 * 3 * len(prs)})
+    if not all(map(math.isfinite, ac["bpp"] + ac["psnr"])):
+        raise AssertionError(f"compress_with_ac {ac}")
+    return {"rd_sweep": n_rd, "compress_with_ac": n_ac}
+
+
+def phase_first_train_vs_jax():
+    """The JAX trainer's first_train losses (tests/fixtures/
+    first_train_jax.json, written by tests/gen_torch_train_fixture.py) against
+    the port's on the card: the same weights (init_weights(0), float32
+    ``pic`` flagship) and batch (utils.synthetic.synth_batch), both held to
+    the fixture's SHA-256; 6 steps with ``training=False`` at lr 1e-4
+    through the kernels. Steps 0-2 within 1% relative; at step 3 both above
+    (or both below) 3x step 2; steps 4-5 below step 3 in both. Returns the
+    (forward, backward) launches."""
+    import epic_tpu_torch as et
+    from epic_tpu_torch.device import resolve_device
+    from epic_tpu_torch.tools import train_witness as tw
+    from epic_tpu_torch.tools.workload import PIC
+    from epic_tpu_torch.utils.synthetic import synth_batch
+
+    dev = resolve_device("cuda")
+    with open(tw.FIXTURE) as f:
+        fx = json.load(f)
+    model = et.get_model("pic", **dict(PIC, compute_dtype="float32")) \
+        .init_weights(fx["weights_seed"])
+    batch = synth_batch(fx["batch"], fx["patch"], fx["batch_seed"])
+    got = (tw.weights_sha256(model), tw.batch_sha256(batch))
+    if got != (fx["weights_sha256"], fx["batch_sha256"]):
+        raise AssertionError(f"weights / batch SHA-256 {got} differ from the "
+                             "fixture's")
+    steps = len(fx["steps"])
+    model = model.to(dev)
+    rows, fwd, bwd = _counted(lambda: tw.fixture_steps(
+        model, torch.as_tensor(batch, device=dev), steps, fx["lr"]), True)
+    want = {k: steps * v for k, v in STEP_LAUNCHES["first_train"].items()}
+    _expect("14 first_train vs JAX", "forward", fwd, want)
+    _expect("14 first_train vs JAX", "backward", bwd, want)
+    jl = [r["loss"] for r in fx["steps"]]
+    pl = [r["loss"] for r in rows]
+    log(f"[14 first_train vs JAX] float32, batch {fx['batch']} x "
+        f"{fx['patch']}^2, weights and batch SHA-256 equal the fixture's")
+    for i, (j, p, jr, pr) in enumerate(zip(jl, pl, fx["steps"], rows)):
+        log(f"[14 first_train vs JAX] step {i}: JAX {j:.4f} port {p:.4f} "
+            f"(rel diff {abs(p - j) / j:.2e}); MSE JAX "
+            + "/".join(f"{v:.5f}" for v in jr["mse"]) + " port "
+            + "/".join(f"{v:.5f}" for v in pr["mse"]))
+    close = all(abs(p - j) <= 0.01 * j for j, p in zip(jl[:3], pl[:3]))
+    jump = (jl[3] > 3 * jl[2]) == (pl[3] > 3 * pl[2])
+    after = all(v < s[3] for s in (jl, pl) for v in s[4:])
+    if not (close and jump and after and all(map(math.isfinite, pl))):
+        raise AssertionError(f"first_train: port {pl} against JAX {jl}")
+    log(f"[14 first_train vs JAX] steps 0-2 within 1%; step 3 "
+        f"{'jumps' if pl[3] > 3 * pl[2] else 'does not jump'} above 3x step "
+        "2 in both, and falls after it in both")
+    del model
+    torch.cuda.empty_cache()
     return fwd, bwd
 
 
@@ -1044,8 +1430,19 @@ def main() -> int:
     phase_reference()
     launches["pipelined"] = phase_pipeline(smi)
     launches["random_access"] = phase_random_access()
-    train_fwd, train_bwd = phase_training(smi)
-    launches["training"] = train_fwd
+    with tempfile.TemporaryDirectory() as work:
+        train_fwd, train_bwd = phase_training(smi, work)
+        launches["training"] = train_fwd
+        launches.update(phase_wacnn_codec())
+        cnn_fwd, cnn_bwd, cnn_ckpt = phase_wacnn_training(smi, work)
+        launches["wacnn_training"] = cnn_fwd
+        launches.update(phase_file_cli(
+            work, os.path.join(work, "train", "rems"), cnn_ckpt))
+    launches.update(phase_rd_eval())
+    c2_fwd, c2_bwd = phase_first_train_vs_jax()
+    launches["first_train_vs_jax"] = c2_fwd
+    backward = {"training": train_bwd, "wacnn_training": cnn_bwd,
+                "first_train_vs_jax": c2_bwd}
     kernels = []
     for name in ("gdn", "igdn"):
         top = per_shape[name][0]  # the largest call of the main path
@@ -1067,12 +1464,12 @@ def main() -> int:
             "name": f"{name}_backward", "route": "cuda",
             "source": "epic_tpu_torch/csrc/gdn_bwd.cu",
             "replaces": "epic_tpu/ops/pallas_gdn.py:80",
-            "launches": train_bwd[name],
+            "launches": sum(n[name] for n in backward.values()),
             "max_abs_err": max(r["max_abs_err"] for r in bwd_shapes[name]),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": None, "rows": top["rows"],
-            "launches_by_path": {"training": train_bwd[name]},
+            "launches_by_path": {k: n[name] for k, n in backward.items()},
             "max_rel_err_dx": max(r["dx"] for r in bwd_shapes[name])})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)

@@ -9,9 +9,11 @@ rewinds to the last checkpoint at half the learning rate (exit code 4).
     python -m epic_tpu_torch.cli.train_device --save_path runs/t1 \\
         --steps first_train=30000,refine_gs=6000,refine_gs_ga=6000,rems=4000
 
-``main`` trains on the teaser photographs (needs Pillow and the image);
-``run(args, images, has_val)`` trains on any uint8 images, e.g.
-``utils.synthetic.synth_images``. It runs on the GPU unless
+``--model cnn`` trains the single-quality WACNN, first_train only.
+
+``main`` trains on the teaser photographs (read by ``data/png.py``; the
+image must be present); ``run(args, images, has_val)`` trains on any uint8
+images, e.g. ``utils.synthetic.synth_images``. It runs on the GPU unless
 ``--device cpu`` (or ``device="cpu"``) is given, and raises without one.
 """
 
@@ -32,8 +34,8 @@ def parse_args(argv=None):
     p.add_argument("--save_path", type=str, required=True)
     p.add_argument("--model", type=str, default="pic",
                    choices=["pic", "cnn"],
-                   help="cnn = single-quality WACNN baseline (not ported "
-                        "yet)")
+                   help="cnn = the single-quality WACNN (first_train "
+                        "only)")
     p.add_argument("--steps", type=str,
                    default="first_train=30000,refine_gs=6000,"
                            "refine_gs_ga=6000,rems=4000")
@@ -87,6 +89,10 @@ def parse_steps(spec: str):
 
 
 def model_config(args, rem: bool):
+    if args.model == "cnn":  # WACNN pins division and branches itself
+        return dict(n=args.N, m=args.M, dim_chunk=args.dim_chunk,
+                    param_net_widths=tuple(args.param_net_widths),
+                    compute_dtype=args.compute_dtype)
     cfg = dict(n=args.N, m=args.M,
                division=tuple(args.division_dimension),
                dim_chunk=args.dim_chunk,
@@ -156,13 +162,14 @@ def run(args, images, has_val, device=None) -> dict:
                                  valid_epoch)
 
     dev = resolve_device(device if device is not None else args.device)
-    if args.model == "cnn":
-        raise NotImplementedError("the WACNN 'cnn' model is not ported yet "
-                                  "(ROADMAP A-4)")
+    stages = parse_steps(args.steps)
+    is_cnn = args.model == "cnn"
+    if is_cnn and [s for s, _ in stages] != ["first_train"]:
+        raise SystemExit("--model cnn trains the single-quality WACNN: only "
+                         "the first_train stage applies")
     os.makedirs(args.save_path, exist_ok=True)
     progress_path = os.path.join(args.save_path, "progress.json")
     log_path = os.path.join(args.save_path, "train_log.jsonl")
-    stages = parse_steps(args.steps)
 
     def beat():
         if args.heartbeat:
@@ -211,7 +218,7 @@ def run(args, images, has_val, device=None) -> dict:
         resuming_here = stage_is_current and progress["next_step"] > 0
         is_rem = stage_name == "rems"
         cfg = model_config(args, rem=is_rem)
-        name = "rem" if is_rem else "pic"
+        name = "cnn" if is_cnn else ("rem" if is_rem else "pic")
         model = get_model(name, **cfg)
         cfg["model"] = name
         params = _stage_params(stage_name, stages, model, args.save_path,
@@ -229,8 +236,11 @@ def run(args, images, has_val, device=None) -> dict:
         state = TrainState(model, stage_name, lr, args.aux_learning_rate,
                            args.clip_max_norm, args.lrp)
         train_step = make_train_step(model, plan)
-        eval_step = make_eval_step(model)
-        valid_loss_step = make_valid_loss_step(model, plan)
+        # WACNN has one quality: validation runs its base-only forward
+        sq = 0.0 if is_cnn else None
+        eval_step = make_eval_step(model, static_quality=sq)
+        valid_loss_step = make_valid_loss_step(model, plan,
+                                               static_quality=sq)
         ckpt_extractor = (make_ckpt_extractor(model, plan.rems)
                           if plan.rems else None)
 
@@ -307,7 +317,8 @@ def run(args, images, has_val, device=None) -> dict:
             if gstep % args.val_every == 0 or gstep == stage_steps:
                 model.eval()
                 val = valid_epoch(eval_step, val_batches,
-                                  pr_list=(0.5, 1, 2, 10),
+                                  pr_list=(0.0,) if is_cnn
+                                  else (0.5, 1, 2, 10),
                                   loss_step=valid_loss_step)
                 model.train()
                 vloss = val["loss"]

@@ -242,25 +242,30 @@ class PICCodec:
     # ---- random access: one quality, per-slice messages ----
     @torch.no_grad()
     def compress(self, x, quality: float = 0.0, return_latents: bool = False,
-                 checkpoint_rep=None) -> Dict[str, Any]:
+                 checkpoint_rep=None, buffered: bool = False
+                 ) -> Dict[str, Any]:
         """Code x [B,H,W,3] in [0,1] (H, W multiples of 64) at one quality:
         z, the base slices and, for quality > 0, every progressive slice
         with its variance mask at that quality (REM-refined by the
         checkpoint latent ``checkpoint_rep`` when given). Returns
         {"strings": [y_strings, z_strings] (y_strings: one list of B
         messages per base slice, then per progressive slice), "shape",
-        "quality", "buffered": False, "io_chain": False}, the JAX package's
-        layout. With ``return_latents``: the decoder's latent, "y_hat_base"
-        at quality <= 0, else "y_hat" (bitwise ``extract_checkpoint``). Models without progressive
-        slices (WACNN, ``get_model("cnn")``) wait for ROADMAP A-4."""
+        "quality", "buffered", "io_chain": False}, the JAX package's
+        layout. With ``buffered`` at quality <= 0 (WACNN's coding), y_strings
+        is one list of B messages, each image's every base slice in one
+        stream. With ``return_latents``: the decoder's latent, "y_hat_base"
+        at quality <= 0, else "y_hat" (bitwise ``extract_checkpoint``)."""
         enc = self.encode_base(self.as_input(x))
         z_np = enc["z_sym"].cpu().numpy()
-        y_strings = self._encode_slices(torch.stack(enc["base_sym"]),
-                                        torch.stack(enc["base_idx"]))
+        sym, idx = torch.stack(enc["base_sym"]), torch.stack(enc["base_idx"])
+        buffered = bool(buffered and quality <= 0)
+        y_strings = ([self._encode_images(sym, idx)] if buffered
+                     else self._encode_slices(sym, idx))
         out: Dict[str, Any] = {
             "strings": [y_strings, self.encode_z(z_np)],
             "shape": tuple(int(s) for s in z_np.shape[1:3]),
-            "quality": float(quality), "buffered": False, "io_chain": False}
+            "quality": float(quality), "buffered": buffered,
+            "io_chain": False}
         if quality <= 0:
             if return_latents:
                 out["y_hat_base"] = torch.cat(enc["base_slices"], dim=-1)
@@ -285,18 +290,30 @@ class PICCodec:
         ``quality`` is given, with the same ``checkpoint_rep``): returns
         {"x_hat", "y_hat"}, y_hat the base latent at quality <= 0, else the
         progressive one. A quality-0 decode runs the base hyper branch
-        only."""
+        only. A buffered stream decodes slice by slice from one stream
+        decoder per image."""
         quality = float(bitstream["quality"] if quality is None
                         else quality)
         y_strings, z_strings = bitstream["strings"]
         z_sym = self.decode_z(z_strings, tuple(bitstream["shape"]))
         lm, ls = self.zhat_hyper(torch.as_tensor(z_sym, device=self.device),
                                  base_only=quality <= 0)
+        streams = ([self.y_coder.stream_decoder(s) for s in y_strings[0]]
+                   if bitstream.get("buffered") else None)
 
         def symbols(i, mu, idx):
-            return self._decode_slice(y_strings[i], idx.cpu().numpy())
+            idx = idx.cpu().numpy()
+            if streams is None:
+                return self._decode_slice(y_strings[i], idx)
+            sym = self.y_coder.decode_streams(streams, idx.reshape(-1),
+                                              [idx[0].size] * idx.shape[0])
+            return torch.as_tensor(sym.reshape(idx.shape), device=self.device)
 
-        base, mus, scales, _, _ = self.base_chain(lm, ls, symbols)
+        try:
+            base, mus, scales, _, _ = self.base_chain(lm, ls, symbols)
+        finally:
+            for st in streams or ():
+                st.close()
         if quality <= 0:
             x_hat, y_hat = self.synth_base(base)
             return {"x_hat": x_hat, "y_hat": y_hat}
@@ -319,6 +336,17 @@ class PICCodec:
         return [self.y_coder.encode_batch(s.reshape(-1), i.reshape(-1),
                                           [per] * s.shape[0])
                 for s, i in zip(sym_np, idx_np)]
+
+    def _encode_images(self, sym: torch.Tensor,
+                       idx: torch.Tensor) -> List[bytes]:
+        """Symbols and CDF indexes [S, B, h, w, c] -> B messages, each
+        image's slices one after another."""
+        b = sym.shape[1]
+        sym_np = sym.transpose(0, 1).reshape(b, -1).cpu().numpy()
+        idx_np = idx.transpose(0, 1).reshape(b, -1).cpu().numpy()
+        return self.y_coder.encode_batch(sym_np.reshape(-1),
+                                         idx_np.reshape(-1),
+                                         [sym_np.shape[1]] * b)
 
     def _decode_slice(self, strings, idx: np.ndarray) -> torch.Tensor:
         """One slice's B messages with host CDF indexes [B, h, w, c] ->

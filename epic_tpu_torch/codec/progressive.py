@@ -77,6 +77,10 @@ def progressive_encode_start(codec: PICCodec, x,
     input on the device), "q_list", "auto_ckpts", "event" (None on the
     CPU), "host" (the six host buffers) and the encoder's device tensors
     (``STATE_KEYS``)."""
+    if not codec.model.progressive:
+        raise ValueError("this model has no progressive stage (WACNN, "
+                         "'cnn'): code it with codec.compress(x, 0, "
+                         "buffered=True)")
     q_list = list(q_list if q_list is not None else DEFAULT_Q_LIST)
     t = time.perf_counter()
     x = codec.as_input(x)

@@ -1,8 +1,9 @@
 """Weights carried across from the JAX package.
 
 ``load_checkpoint(directory)`` reads a committed checkpoint (``config.json``
-and ``last.npz``, as the JAX package's ``save_artifact`` writes them) with
-numpy alone and returns the port's model with its weights.
+and ``last.npz`` or ``best.npz``, as the JAX package's ``save_artifact``
+writes them, in the stacked or the older per-slice layout) with numpy alone
+and returns the port's model with its weights.
 
 ``from_jax_params(params, model)`` takes the JAX package's parameter tree
 (nested dicts of numpy arrays, as ``jax.device_get`` or a ``last.npz``
@@ -37,12 +38,17 @@ import torch
 from torch import nn
 
 
-def _to_tensor(a) -> torch.Tensor:
+def _as_f32(a) -> np.ndarray:
+    """An array as float32; bfloat16 (numpy's opaque ``|V2``) exactly, as
+    the top half of a float32."""
     a = np.asarray(a)
     if a.dtype.itemsize == 2 and a.dtype.kind == "V":
-        return torch.from_numpy(a.view(np.uint16).copy()).view(
-            torch.bfloat16).float()
-    return torch.from_numpy(np.array(a, dtype=np.float32))
+        return (a.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+    return a.astype(np.float32)
+
+
+def _to_tensor(a) -> torch.Tensor:
+    return torch.from_numpy(_as_f32(a))
 
 
 def _flatten(tree: Dict[str, Any], prefix=()):
@@ -141,40 +147,113 @@ def _unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
     return root
 
 
-def load_checkpoint(directory: str,
-                    config_overrides: Optional[Dict[str, Any]] = None,
-                    disable_rems_if_missing: bool = False):
-    """A committed checkpoint -> (model, config, step): the model named by
-    ``config.json`` (with ``config_overrides`` applied, e.g.
-    ``{"compute_dtype": "float32"}``) on the CPU, with every array of
-    ``last.npz`` loaded. Raises on the pre-stacking per-slice layout
-    (``cc_mean_0``, ``post_latent_0_0``), which the port does not convert.
-    A ``rem`` config whose checkpoint has no REM banks raises too, unless
-    ``disable_rems_if_missing`` asks for the plain ``pic`` model instead
-    (the JAX loader's default)."""
+def stack_legacy_param_nets(params: Dict[str, Any], model) -> Dict[str, Any]:
+    """The per-slice layout (``cc_mean_0`` ... with ``Conv_{l}/kernel``
+    [3, 3, in_i, out], ``post_latent_{r}_{i}``) -> the stacked one
+    (``cc_mean/Conv_{l}_kernel`` [S, 3, 3, in, out], ``post_latent_{r}``
+    with a leading slice axis on every leaf), as the JAX package's
+    ``training.checkpoint.stack_legacy_param_nets``. Each slice's ragged
+    first-layer input rows are zero-padded where the fixed-width support
+    layout has slots that slice does not fill:
+
+    - base heads: [d0 | support(k) | zeros]; base lrp: the same, then y_hat;
+    - progressive heads: [dp | base_i | zeros | mu_total(k)]; progressive
+      lrp: the same, then y_hat.
+
+    Zero rows meet zero inputs, so the converted weights compute what the
+    per-slice heads did."""
+    p = dict(params)
+    c, d0 = model.dim_chunk, model.division[0]
+    dp = model.division[1] - d0
+    nprog = model.ns1 - model.ns0
+    nb, npg = model.n_slots_base, model.n_slots_prog
+
+    def slots_base(i):
+        k = i if model.max_support_slices < 0 else \
+            min(model.max_support_slices, i)
+        return d0 + k * c, (nb - k) * c
+
+    def slots_prog(i):
+        k = (min(model.support_progressive_slices, i)
+             if model.support_progressive_slices > 0 else 0)
+        return dp + c, (npg - k) * c
+
+    for name, count, slots in (("cc_mean", model.ns0, slots_base),
+                               ("cc_scale", model.ns0, slots_base),
+                               ("lrp", model.ns0, slots_base),
+                               ("cc_mean_prog", nprog, slots_prog),
+                               ("cc_scale_prog", nprog, slots_prog),
+                               ("lrp_prog", model.ns0, slots_prog)):
+        if f"{name}_0" not in p:
+            continue
+        subs = [p.pop(f"{name}_{i}") for i in range(count)]
+        stacked = {}
+        for layer in range(len(subs[0])):
+            kernels = []
+            for i, sub in enumerate(subs):
+                kern = _as_f32(sub[f"Conv_{layer}"]["kernel"])
+                pos, pad = slots(i) if layer == 0 else (0, 0)
+                if pad:
+                    kern = np.concatenate(
+                        [kern[:, :, :pos],
+                         np.zeros(kern.shape[:2] + (pad,) + kern.shape[3:],
+                                  np.float32), kern[:, :, pos:]], axis=2)
+                kernels.append(kern)
+            stacked[f"Conv_{layer}_kernel"] = np.stack(kernels)
+            stacked[f"Conv_{layer}_bias"] = np.stack(
+                [_as_f32(sub[f"Conv_{layer}"]["bias"]) for sub in subs])
+        p[name] = stacked
+
+    def stack_trees(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack_trees([t[k] for t in trees]) for k in trees[0]}
+        return np.stack([_as_f32(t) for t in trees])
+
+    r = 0
+    while f"post_latent_{r}_0" in p:
+        p[f"post_latent_{r}"] = stack_trees(
+            [p.pop(f"post_latent_{r}_{i}") for i in range(model.ns0)])
+        r += 1
+    return p
+
+
+def _model_from_config(config: Dict[str, Any]):
     from .models import get_model
 
+    cfg = {k: tuple(v) if isinstance(v, list) else v
+           for k, v in config.items() if k != "model"}
+    return get_model(config.get("model", "pic"), **cfg)
+
+
+def load_checkpoint(directory: str, which: str = "last",
+                    config_overrides: Optional[Dict[str, Any]] = None,
+                    disable_rems_if_missing: bool = True):
+    """A checkpoint directory -> (model, config, step): the model named by
+    ``config.json`` (with ``config_overrides`` applied, e.g.
+    ``{"compute_dtype": "float32"}``) on the CPU, with every array of
+    ``{which}.npz`` ("last" or "best") loaded, as the JAX package's
+    ``load_checkpoint`` reads it. The per-slice layout of older checkpoints
+    is stacked first (``stack_legacy_param_nets``). A ``rem`` config whose
+    checkpoint has no REM banks loads as the plain ``pic`` model, as in the
+    JAX package, unless ``disable_rems_if_missing=False``: then it
+    raises."""
     with open(os.path.join(directory, "config.json")) as f:
         meta = json.load(f)
     config = dict(meta["config"])
     config.update(config_overrides or {})
-    name = config.pop("model", "pic")
-    with np.load(os.path.join(directory, "last.npz")) as z:
+    config.setdefault("model", "pic")
+    with np.load(os.path.join(directory, which + ".npz")) as z:
         params = _unflatten({k: z[k] for k in z.files})
+    model = _model_from_config(config)
     if "cc_mean_0" in params or "post_latent_0_0" in params:
-        raise ValueError(f"{directory}: per-slice (pre-stacking) parameter "
-                         "layout; the port loads only stacked checkpoints")
-    if name == "rem" and "post_latent_0" not in params:
+        params = stack_legacy_param_nets(params, model)
+    if config["model"] == "rem" and "post_latent_0" not in params:
         if not disable_rems_if_missing:
             raise ValueError(f"{directory}: a 'rem' config without REM "
-                             "banks (post_latent_*); pass "
-                             "disable_rems_if_missing=True to load it as "
-                             "'pic'")
-        name = "pic"
+                             "banks (post_latent_*)")
+        config["model"] = "pic"
         for k in ("check_levels", "mu_std", "rem_dimension"):
             config.pop(k, None)
-    model = get_model(name, **{k: tuple(v) if isinstance(v, list) else v
-                               for k, v in config.items()})
+        model = _model_from_config(config)
     model.load_state_dict(from_jax_params(params, model))
-    config["model"] = name
     return model, config, meta.get("step", 0)

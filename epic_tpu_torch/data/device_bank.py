@@ -47,37 +47,71 @@ class CropBank:
         return self.bank.shape[0]
 
 
+def _lanczos_weights(n_in: int, n_out: int) -> np.ndarray:
+    """[n_out, n_in] fixed-point (22 fraction bits) weights of Pillow's
+    Lanczos-3 resampling along one axis (``Resample.c``:
+    ``precompute_coeffs`` and ``normalize_coeffs_8bpc``)."""
+    scale = n_in / n_out
+    fscale = max(scale, 1.0)
+    support = 3.0 * fscale
+    out = np.zeros((n_out, n_in), np.float64)
+    for xx in range(n_out):
+        center = (xx + 0.5) * scale
+        lo = max(int(center - support + 0.5), 0)
+        hi = min(int(center + support + 0.5), n_in)
+        t = (np.arange(lo, hi) - center + 0.5) / fscale
+        w = np.sinc(t) * np.sinc(t / 3.0)
+        w[(t < -3.0) | (t >= 3.0)] = 0.0
+        total = w.sum()
+        if total != 0.0:
+            w = w / total
+        out[xx, lo:hi] = np.where(w < 0, np.trunc(-0.5 + w * 2.0 ** 22),
+                                  np.trunc(0.5 + w * 2.0 ** 22))
+    return out
+
+
+def _resample_axis0(img: np.ndarray, weights: np.ndarray) -> np.ndarray:
+    """One pass over axis 0 of uint8 [N, ...]: the fixed-point sums (exact
+    in float64), rounded and clipped to uint8 as Pillow does."""
+    flat = img.reshape(img.shape[0], -1).astype(np.float64)
+    acc = weights @ flat + 2.0 ** 21
+    out = np.clip(np.floor(acc / 2.0 ** 22), 0, 255).astype(np.uint8)
+    return out.reshape((weights.shape[0],) + img.shape[1:])
+
+
+def resize_lanczos(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    """uint8 [H, W, 3] -> [h, w, 3] as Pillow's ``Image.resize((w, h),
+    Image.LANCZOS)``: horizontal pass, then vertical, each rounded to
+    uint8."""
+    if w != img.shape[1]:
+        img = _resample_axis0(img.transpose(1, 0, 2), _lanczos_weights(
+            img.shape[1], w)).transpose(1, 0, 2)
+    if h != img.shape[0]:
+        img = _resample_axis0(img, _lanczos_weights(img.shape[0], h))
+    return np.ascontiguousarray(img)
+
+
 def load_teaser_images(path: str = TEASER_PATH,
                        scales: Sequence[float] = (1.0, 0.75, 0.5),
                        exclude: Sequence[str] = (),
                        ) -> Tuple[List[np.ndarray], List[bool]]:
     """(images, has_val): the teaser's photographic regions, the main photo
-    at ``scales`` (only its variants carry a validation strip). ``exclude``
-    drops whole regions by name. Needs Pillow and the teaser image; raises
-    if either is missing."""
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise RuntimeError("load_teaser_images needs Pillow, which is not "
-                           "installed; pass images to cli.train_device.run "
-                           "instead (e.g. utils.synthetic.synth_images)"
-                           ) from e
+    at ``scales`` (only its variants carry a validation strip), read with
+    ``data/png.py`` and scaled with ``resize_lanczos``. ``exclude`` drops
+    whole regions by name. Raises if the teaser image is missing."""
+    from .png import read_png
+
     if not os.path.exists(path):
         raise FileNotFoundError(f"teaser image not found: {path}")
-    im = np.asarray(Image.open(path).convert("RGB"))
+    im = read_png(path)
     images, has_val = [], []
     for name, (y0, y1, x0, x1) in TEASER_REGIONS.items():
         if name in exclude:
             continue
         region = im[y0:y1, x0:x1]
         for s in (scales if name == "main" else (1.0,)):
-            if s == 1.0:
-                img = region
-            else:
-                img = np.asarray(Image.fromarray(region).resize(
-                    (int(region.shape[1] * s), int(region.shape[0] * s)),
-                    Image.LANCZOS))
-            images.append(img)
+            images.append(region if s == 1.0 else resize_lanczos(
+                region, int(region.shape[1] * s), int(region.shape[0] * s)))
             has_val.append(name == "main")
     return images, has_val
 

@@ -1,0 +1,140 @@
+"""PNG files with the standard library's ``zlib`` and numpy (no Pillow).
+
+The reader takes 8-bit, non-interlaced grey, grey + alpha, RGB and RGBA
+files with any of the five row filters, and converts them as Pillow's
+``.convert("RGB")`` does: grey is repeated over the three channels and
+alpha is dropped. Palette, 16-bit and interlaced files raise ValueError.
+The writer writes RGB8 with filter 0 on every row.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# colour type -> channels of an 8-bit pixel
+CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+
+
+def _chunks(data: bytes):
+    pos = len(SIGNATURE)
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        crc, = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
+        if zlib.crc32(kind + body) != crc:
+            raise ValueError(f"PNG chunk {kind!r}: CRC mismatch")
+        yield kind, body
+        pos += 12 + length
+        if kind == b"IEND":
+            return
+    raise ValueError("PNG file ends before its IEND chunk")
+
+
+def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
+    """Filtered scanlines (a filter byte, then ``w * bpp`` bytes, per row)
+    -> [h, w, bpp] uint8.
+
+    A byte is predicted from the same byte of its left, upper and
+    upper-left pixels, already decoded. So the pixels of one anti-diagonal
+    (y + x = t) depend only on the two diagonals before it, and are decoded
+    together, each row by its own filter: h + w - 1 vector steps instead of
+    a Python loop over every byte. The image is held skewed, pixel (y, x)
+    at [y + x + 2, y + 1], so that those diagonals are contiguous slices;
+    the cells around the image stay zero, as the filters' borders are."""
+    stride = w * bpp
+    if len(raw) < h * (stride + 1):
+        raise ValueError("PNG image data is truncated")
+    rows = np.frombuffer(raw, np.uint8, h * (stride + 1)).reshape(
+        h, stride + 1)
+    kinds = rows[:, :1]
+    if kinds.max(initial=0) > 4:
+        y = int(np.argmax(kinds[:, 0] > 4))
+        raise ValueError(f"PNG row {y}: unknown filter type {kinds[y, 0]}")
+    filtered = rows[:, 1:].reshape(h, w, bpp)
+    if not kinds.any():
+        return filtered.copy()
+    yy, xx = np.mgrid[:h, :w]
+    skew = (yy + xx + 2, yy + 1)
+    f = np.zeros((h + w + 1, h + 1, bpp), np.int16)
+    f[skew] = filtered
+    out = np.zeros_like(f)
+    for t in range(h + w - 1):
+        lo, hi = max(0, t - w + 1), min(h, t + 1)
+        a = out[t + 1, lo + 1:hi + 1]  # left
+        b = out[t + 1, lo:hi]  # up
+        c = out[t, lo:hi]  # up-left
+        k = kinds[lo:hi]
+        pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+        pred = np.where(k == 4, np.where((pa <= pb) & (pa <= pc), a,
+                                         np.where(pb <= pc, b, c)),
+                        np.where(k == 3, (a + b) >> 1,
+                                 np.where(k == 2, b, np.where(k == 1, a, 0))))
+        out[t + 2, lo + 1:hi + 1] = (f[t + 2, lo + 1:hi + 1] + pred) & 0xFF
+    return out[skew].astype(np.uint8)
+
+
+def read_png(path: str) -> np.ndarray:
+    """An 8-bit PNG file -> uint8 [H, W, 3] RGB (grey repeated, alpha
+    dropped)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith(SIGNATURE):
+        raise ValueError(f"{path}: not a PNG file")
+    header, idat = None, []
+    for kind, body in _chunks(data):
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+    if header is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    w, h, depth, colour, _, _, interlace = header
+    if colour == 3:
+        raise ValueError(f"{path}: palette PNG files are not supported")
+    if depth != 8 or colour not in CHANNELS:
+        raise ValueError(f"{path}: only 8-bit grey, grey+alpha, RGB and RGBA "
+                         f"PNG files are supported (bit depth {depth}, "
+                         f"colour type {colour})")
+    if interlace:
+        raise ValueError(f"{path}: interlaced PNG files are not supported")
+    ch = CHANNELS[colour]
+    px = _unfilter(zlib.decompress(b"".join(idat)), h, w, ch)
+    if ch <= 2:  # grey (+ alpha)
+        return np.repeat(px[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(px[..., :3])
+
+
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """uint8 [H, W, 3] -> an RGB8 PNG file, filter 0 on every row."""
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    if rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"write_png takes [H, W, 3] uint8, got {rgb.shape}")
+    h, w, _ = rgb.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, -1)],
+                          axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    with open(path, "wb") as f:
+        f.write(SIGNATURE
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+                + chunk(b"IEND", b""))
+
+
+def load_image(path: str) -> np.ndarray:
+    """A PNG file -> float32 [H, W, 3] in [0, 1] (uint8 / 255), as the JAX
+    package's ``data.datasets._load_image`` reads an image."""
+    return read_png(path).astype(np.float32) / np.float32(255.0)
+
+
+def to_uint8(x) -> np.ndarray:
+    """A reconstruction in [0, 1] -> uint8 as the JAX package's CLIs save
+    it: clipped to [0, 1], times 255, truncated."""
+    return (np.clip(np.asarray(x, np.float32), 0, 1) * 255).astype(np.uint8)

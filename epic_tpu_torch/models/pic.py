@@ -11,7 +11,13 @@ std; untransmitted ones decode to the predicted mean.
 
 Delta coding of the residual and the total-mean support of the progressive
 chain (``delta_encode`` / ``total_mu_rep`` in the JAX package) are always on,
-as in every configuration the JAX package ships.
+as in every configuration the JAX package ships. The transforms and the
+hyperprior are two branches each (``multiple_encoder`` / ``_decoder`` /
+``_hyperprior``, default True: ``g_a_0`` / ``g_a_1`` ...) or one
+(``g_a``, ``g_s``, ``h_mean_s``, ``h_scale_s``; the single ``g_a`` and
+hyper-synthesis output all M channels). With ``division[0] ==
+division[1]`` (WACNN) there is no progressive stage and no progressive
+heads.
 
 The JAX package runs the slice chains as ``lax.scan`` over stacked weights;
 here they are loops over the same stacked weights (scan and unrolled are
@@ -49,7 +55,9 @@ class VarianceMaskingPIC(nn.Module):
                  support_progressive_slices: int = 5,
                  max_support_slices: int = 5,
                  param_net_widths: Sequence[int] = (224, 176, 128, 64),
-                 compute_dtype: str = "float32", scale_bound: float = 0.11):
+                 compute_dtype: str = "float32", scale_bound: float = 0.11,
+                 multiple_encoder: bool = True, multiple_decoder: bool = True,
+                 multiple_hyperprior: bool = True):
         super().__init__()
         self.n, self.m = n, m
         self.division = tuple(division)
@@ -58,26 +66,41 @@ class VarianceMaskingPIC(nn.Module):
         self.max_support_slices = max_support_slices
         self.scale_bound = scale_bound
         self.compute_dtype = compute_dtype
+        self.multiple_encoder = multiple_encoder
+        self.multiple_decoder = multiple_decoder
+        self.multiple_hyperprior = multiple_hyperprior
         dt = None if compute_dtype == "float32" else getattr(torch,
                                                              compute_dtype)
         self.dt = dt
         d0 = self.division[0]
-        for i in range(2):
-            setattr(self, f"g_a_{i}", AnalysisTransform(n, d0, dt))
-            setattr(self, f"g_s_{i}", SynthesisTransform(n, d0, dt))
+        if multiple_encoder:
+            for i in range(2):
+                setattr(self, f"g_a_{i}", AnalysisTransform(n, d0, dt))
+        else:
+            self.g_a = AnalysisTransform(n, m, dt)
+        if multiple_decoder:
+            for i in range(2):
+                setattr(self, f"g_s_{i}", SynthesisTransform(n, d0, dt))
+        else:
+            self.g_s = SynthesisTransform(n, d0, dt)
         self.h_a = HyperAnalysis(m, n, dt)
-        for i in range(2):
-            setattr(self, f"h_mean_s_{i}", HyperSynthesis(n, d0, dt))
-            setattr(self, f"h_scale_s_{i}", HyperSynthesis(n, d0, dt))
+        if multiple_hyperprior:
+            for i in range(2):
+                setattr(self, f"h_mean_s_{i}", HyperSynthesis(n, d0, dt))
+                setattr(self, f"h_scale_s_{i}", HyperSynthesis(n, d0, dt))
+        else:
+            self.h_mean_s = HyperSynthesis(n, m, dt, first_width=n)
+            self.h_scale_s = HyperSynthesis(n, m, dt, first_width=n)
         ns0, nprog, c = self.ns0, self.ns1 - self.ns0, dim_chunk
         pw = tuple(param_net_widths)
         in_b, in_p = self._in_base, self._in_prog
         self.cc_mean = StackedParamNet(ns0, in_b, c, pw, dt)
         self.cc_scale = StackedParamNet(ns0, in_b, c, pw, dt)
         self.lrp = StackedParamNet(ns0, in_b + c, c, pw, dt)
-        self.cc_mean_prog = StackedParamNet(nprog, in_p, c, pw, dt)
-        self.cc_scale_prog = StackedParamNet(nprog, in_p, c, pw, dt)
-        self.lrp_prog = StackedParamNet(ns0, in_p + c, c, pw, dt)
+        if nprog > 0:
+            self.cc_mean_prog = StackedParamNet(nprog, in_p, c, pw, dt)
+            self.cc_scale_prog = StackedParamNet(nprog, in_p, c, pw, dt)
+            self.lrp_prog = StackedParamNet(ns0, in_p + c, c, pw, dt)
         self.entropy_bottleneck = EntropyBottleneck(n)
 
     # ---- derived sizes ----
@@ -114,8 +137,15 @@ class VarianceMaskingPIC(nn.Module):
         return dp + self.dim_chunk + self.n_slots_prog * self.dim_chunk
 
     # ---- transforms ----
+    @property
+    def progressive(self) -> bool:
+        """Whether the model has a progressive stage (WACNN has none)."""
+        return self.ns1 > self.ns0
+
     def latent(self, x: torch.Tensor) -> torch.Tensor:
         """g_a: [B,H,W,3] -> y [B,h,w,M] (both encoders)."""
+        if not self.multiple_encoder:
+            return self.g_a(x)
         return torch.cat([self.g_a_0(x), self.g_a_1(x)], dim=-1)
 
     def hyper_analysis(self, y: torch.Tensor) -> torch.Tensor:
@@ -126,6 +156,8 @@ class VarianceMaskingPIC(nn.Module):
 
     def hyper_synthesis(self, z_hat: torch.Tensor):
         """-> (latent_means, latent_scales), both [B,h,w,M]."""
+        if not self.multiple_hyperprior:
+            return self.h_mean_s(z_hat), self.h_scale_s(z_hat)
         means = torch.cat([self.h_mean_s_0(z_hat), self.h_mean_s_1(z_hat)],
                           dim=-1)
         scales = torch.cat([self.h_scale_s_0(z_hat),
@@ -135,13 +167,17 @@ class VarianceMaskingPIC(nn.Module):
     def hyper_synthesis_base(self, z_hat: torch.Tensor):
         """The base branch only, [B,h,w,division[0]] each: all a base-only
         decode needs."""
+        if not self.multiple_hyperprior:
+            d0 = self.division[0]
+            return (self.h_mean_s(z_hat)[..., :d0],
+                    self.h_scale_s(z_hat)[..., :d0])
         return self.h_mean_s_0(z_hat), self.h_scale_s_0(z_hat)
 
     def synthesize_base(self, y_hat_base: torch.Tensor) -> torch.Tensor:
-        return self.g_s_0(y_hat_base)
+        return (self.g_s_0 if self.multiple_decoder else self.g_s)(y_hat_base)
 
     def synthesize_prog(self, y_hat_prog: torch.Tensor) -> torch.Tensor:
-        return self.g_s_1(y_hat_prog)
+        return (self.g_s_1 if self.multiple_decoder else self.g_s)(y_hat_prog)
 
     # ---- base chain, one slice at a time ----
     def base_buffer(self, lm_b: torch.Tensor) -> torch.Tensor:
@@ -272,9 +308,12 @@ class VarianceMaskingPIC(nn.Module):
             return list(quality) if quality[0] == 0 else [0] + list(quality)
         return [quality]
 
-    def forward(self, x: torch.Tensor, quality=None, training: bool = True,
-                generator: torch.Generator = None):
-        """Multi-quality training forward (the JAX package's ``__call__``):
+    def multi_quality(self, x: torch.Tensor, quality=None,
+                      training: bool = True,
+                      generator: torch.Generator = None):
+        """Multi-quality training forward (the JAX package's ``__call__``,
+        and this model's ``forward``; the trainer calls it by this name,
+        which subclasses that define another ``forward`` keep):
         x [B,H,W,3] -> {"x_hat": [1+L, B, H, W, 3] (base first, not
         clipped), "likelihoods": {"y": base [B,h,w,d0], "y_prog": per level
         [L,B,h,w,d1] (base + that level's slices), "z"}, "y_base", "y_prog",
@@ -288,7 +327,8 @@ class VarianceMaskingPIC(nn.Module):
         y_hat_b = torch.cat(base, dim=-1)
         x_hat_base = self.synthesize_base(y_hat_b)
         y_lik_base = torch.cat(base_liks, dim=-1)
-        prog_qs = [q for q in qualities if q != 0]
+        prog_qs = [q for q in qualities if q != 0] if self.progressive \
+            else []
         if not prog_qs:
             return {"x_hat": x_hat_base[None],
                     "likelihoods": {"y": y_lik_base, "z": z_lik},
@@ -325,6 +365,8 @@ class VarianceMaskingPIC(nn.Module):
                                 "z": z_lik},
                 "y_base": y_hat_b, "y_prog": y_hat_prog,
                 "prog_scales": scales, "prog_mus": mus}
+
+    forward = multi_quality
 
     def forward_single_quality(self, x: torch.Tensor, quality: float,
                                training: bool = False, checkpoint_ref=None,

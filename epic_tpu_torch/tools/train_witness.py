@@ -21,12 +21,21 @@ L2 distance over all gradients, and the largest over single tensors).
 Needs one CUDA device.
 
     python3 -m epic_tpu_torch.tools.train_witness
+
+``fixture_steps`` runs the steps that ``tests/fixtures/first_train_jax.json``
+records for the JAX trainer (written by ``tests/gen_torch_train_fixture.py``):
+first_train in float32 with ``training=False`` (rounding, no noise) at lr
+1e-4, on ``utils.synthetic.synth_batch`` and the ``pic`` flagship weights of
+``init_weights(0)``, whose SHA-256 (``weights_sha256``, ``batch_sha256``)
+the fixture also holds.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
+import os
 import subprocess
 
 import numpy as np
@@ -38,13 +47,15 @@ from ..models import get_model
 from ..ops import gdn as gdn_module
 from ..ops.gdn_kernel import gdn, gdn_backward, gdn_plain
 from ..training.stages import make_stage
-from ..training.state import set_learning_rate
+from ..training.state import TrainState, set_learning_rate
 from ..training.step import TrainStep, make_train_step
 from ..utils.synthetic import synth_images
 from .profile_train import stage_runner
 from .workload import PIC
 
 STEPS, BATCH, PATCH = 6, 16, 256
+FIXTURE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "tests", "fixtures", "first_train_jax.json")
 # name: (compute dtype, GDN through the kernels, learning rate)
 RUNS = {"kernels": ("bfloat16", True, 1e-4),
         "plain": ("bfloat16", False, 1e-4),
@@ -71,6 +82,44 @@ def _terms(m) -> dict:
             "bpp_hype": float(m["bpp_hype"]),
             "mse": [float(v) for v in m["mse_loss"]],
             "grad_norm": float(m["grad_norm"])}
+
+
+def sha256_arrays(arrays) -> str:
+    """SHA-256 of float32 arrays' bytes, one after another."""
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a, dtype=np.float32).tobytes())
+    return h.hexdigest()
+
+
+def weights_sha256(model) -> str:
+    """SHA-256 of a model's state_dict in float32, keys in sorted order."""
+    sd = model.state_dict()
+    return sha256_arrays(sd[k].detach().float().cpu().numpy()
+                         for k in sorted(sd))
+
+
+def batch_sha256(batch) -> str:
+    return sha256_arrays([np.asarray(batch)])
+
+
+def fixture_steps(model, batch: torch.Tensor, steps: int = STEPS,
+                  lr: float = 1e-4) -> list:
+    """first_train steps on one fixed batch with ``training=False`` (the
+    function the fixture's JAX steps compute): per step
+    ``{"loss", "bpp_loss", "bpp_base", "bpp_scalable", "bpp_hype", "mse",
+    "qualities"}`` (the terms at the parameters before the step)."""
+    plan = make_stage("first_train")
+    state = TrainState(model, "first_train", lr)
+    step = make_train_step(model, plan, training=False)
+    rows = []
+    for _ in range(steps):
+        m = step(state, batch)
+        rows.append({k: float(m[k]) for k in (
+            "loss", "bpp_loss", "bpp_base", "bpp_scalable", "bpp_hype")})
+        rows[-1]["mse"] = [float(v) for v in m["mse_loss"]]
+        rows[-1]["qualities"] = [float(q) for q in plan.list_quality]
+    return rows
 
 
 def witness(name: str, batch, dev):

@@ -86,28 +86,34 @@ def draw_quality(plan: StagePlan, rng: np.random.Generator):
     return float(plan.list_quality[qi]), float(lmbda)
 
 
-def _trains(name: str, stage: str, unfreeze_lrp: bool) -> bool:
+def _trains(name: str, stage: str, unfreeze_lrp: bool, dec: str,
+            enc: str) -> bool:
     if "quantiles" in name:
         return False
     if stage == "first_train":
         return True
     if stage == "refine_gs":
-        return name.startswith("g_s_1") or (unfreeze_lrp
-                                            and name.startswith("lrp_prog"))
+        return name.startswith(dec) or (unfreeze_lrp
+                                        and name.startswith("lrp_prog"))
     if stage == "refine_gs_ga":
-        return name.startswith("g_s_1") or name.startswith("g_a_1")
+        return name.startswith(dec) or name.startswith(enc)
     if stage == "rems":
         return name.startswith("post_latent")
     raise ValueError(stage)
 
 
 def trainable_mask(names: Iterable[str], stage: str,
-                   unfreeze_lrp: bool = False) -> Dict[str, bool]:
+                   unfreeze_lrp: bool = False, multiple_decoder: bool = True,
+                   multiple_encoder: bool = True) -> Dict[str, bool]:
     """{parameter name: whether the main optimizer updates it}.
     first_train: all but the bottleneck quantiles (the aux optimizer's);
-    refine_gs: g_s_1 (+ lrp_prog with ``unfreeze_lrp``); refine_gs_ga:
-    g_s_1 and g_a_1; rems: the REM banks (post_latent_*)."""
-    return {n: _trains(n, stage, unfreeze_lrp) for n in names}
+    refine_gs: the enhancement decoder, g_s_1 (g_s in a single-branch
+    model; + lrp_prog with ``unfreeze_lrp``); refine_gs_ga: that decoder
+    and the enhancement encoder, g_a_1 (g_a); rems: the REM banks
+    (post_latent_*)."""
+    dec = "g_s_1" if multiple_decoder else "g_s"
+    enc = "g_a_1" if multiple_encoder else "g_a"
+    return {n: _trains(n, stage, unfreeze_lrp, dec, enc) for n in names}
 
 
 def quantiles_mask(names: Iterable[str]) -> Dict[str, bool]:

@@ -106,7 +106,9 @@ class TrainState:
         named = list(model.named_parameters())
         self.names: List[str] = [n for n, _ in named]
         self.params: List[torch.Tensor] = [p for _, p in named]
-        mask = trainable_mask(self.names, stage, unfreeze_lrp)
+        mask = trainable_mask(self.names, stage, unfreeze_lrp,
+                              model.multiple_decoder,
+                              model.multiple_encoder)
         self.trainable: List[bool] = [mask[n] for n in self.names]
         self.main = Adam([p for p, t in zip(self.params, self.trainable)
                           if t], learning_rate)

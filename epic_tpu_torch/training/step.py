@@ -10,7 +10,8 @@ caller, with REM training conditioned on a checkpoint latent that
 ``make_ckpt_extractor`` computes without gradients.
 
 Validation estimates rate from the likelihoods (no entropy coding), per
-quality: ``make_eval_step``, ``make_valid_loss_step``, ``valid_epoch``.
+quality: ``make_eval_step``, ``make_valid_loss_step``, ``valid_epoch``,
+``test_epoch``.
 """
 
 from __future__ import annotations
@@ -41,8 +42,9 @@ class TrainStep:
         """The stage criterion's outputs ("loss", "mse_loss", "bpp_*") of
         one forward."""
         if not self.plan.sampling:
-            out = self.model(batch, list(self.plan.list_quality),
-                             self.training, generator)
+            out = self.model.multi_quality(
+                batch, list(self.plan.list_quality), self.training,
+                generator)
             return self.criterion(out, batch, self.plan.lmbda_list)
         out = self.model.forward_single_quality(
             batch, quality, self.training, checkpoint_ref, generator)
@@ -116,12 +118,16 @@ def extract_quality_ref(quality: float,
     return c[-1]
 
 
-def make_eval_step(model) -> Callable:
+def make_eval_step(model, static_quality: Optional[float] = None
+                   ) -> Callable:
     """evaluate(batch, quality) -> (x_hat, bits per pixel estimated from
-    the likelihoods, per-image mse [B])."""
+    the likelihoods, per-image mse [B]). ``static_quality`` pins the
+    forward to that quality whatever the caller passes (0 for WACNN, which
+    has one quality)."""
     @torch.no_grad()
     def evaluate(batch: torch.Tensor, quality: float):
-        out = model.forward_single_quality(batch, quality, False)
+        q = quality if static_quality is None else float(static_quality)
+        out = model.forward_single_quality(batch, q, False)
         b, h, w, _ = batch.shape
         bits = sum(-torch.log2(lik).sum()
                    for lik in out["likelihoods"].values())
@@ -131,15 +137,19 @@ def make_eval_step(model) -> Callable:
     return evaluate
 
 
-def make_valid_loss_step(model, plan: StagePlan) -> Callable:
+def make_valid_loss_step(model, plan: StagePlan,
+                         static_quality: Optional[float] = None
+                         ) -> Callable:
     """valid(batch, quality) -> the stage criterion's loss at the plan's
-    last lambda: what the plateau schedule steps on."""
+    last lambda: what the plateau schedule steps on. ``static_quality``
+    as in ``make_eval_step``."""
     criterion = CRITERIA[plan.criterion]
     lmbda = float(plan.lmbda_list[-1])
 
     @torch.no_grad()
     def valid(batch: torch.Tensor, quality: float) -> torch.Tensor:
-        out = model.forward_single_quality(batch, quality, False)
+        q = quality if static_quality is None else float(static_quality)
+        out = model.forward_single_quality(batch, q, False)
         return criterion(out, batch, lmbda)["loss"]
 
     return valid
@@ -172,3 +182,15 @@ def valid_epoch(eval_step, batches,
     if losses:
         out["loss"] = float(np.mean(losses))
     return out
+
+
+# the 15-level grid of the test sweep
+TEST_PR_LIST = (0, 0.05, 0.1, 0.25, 0.5, 0.6, 0.75, 1, 1.25, 2, 2.5, 3,
+                3.5, 5, 10)
+
+
+def test_epoch(eval_step, batches, pr_list: Sequence[float] = TEST_PR_LIST
+               ) -> Dict:
+    """Rate (estimated from the likelihoods) and PSNR over the 15-level
+    grid: ``valid_epoch`` at ``TEST_PR_LIST``."""
+    return valid_epoch(eval_step, batches, pr_list)

@@ -41,3 +41,21 @@ def to_f32(u8, device) -> torch.Tensor:
     byte a pixel and divided by 255 there (the same IEEE float32 values as
     ``u8.astype(np.float32) / 255.0`` on the host)."""
     return torch.as_tensor(u8, device=device).to(torch.float32) / 255.0
+
+
+def synth_batch(batch: int = 16, patch: int = 256,
+                seed: int = 0) -> np.ndarray:
+    """A fixed training batch made on the host with numpy alone, the same
+    on every machine: ``batch`` patch x patch crops of ``synth_images(8,
+    default_rng(seed))`` at positions drawn from ``default_rng(seed + 1)``,
+    as float32 [batch, patch, patch, 3] in [0, 1] (uint8 / 255)."""
+    imgs = synth_images(8, np.random.default_rng(seed))
+    rng = np.random.default_rng(seed + 1)
+    out = np.empty((batch, patch, patch, 3), np.float32)
+    for k in range(batch):
+        img = imgs[int(rng.integers(len(imgs)))]
+        top = int(rng.integers(img.shape[0] - patch + 1))
+        left = int(rng.integers(img.shape[1] - patch + 1))
+        out[k] = (img[top:top + patch, left:left + patch].astype(np.float32)
+                  / np.float32(255.0))
+    return out

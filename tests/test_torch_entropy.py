@@ -5,7 +5,14 @@ rtol 1e-5, atol 1e-7); CDF-table indexes, the default quantized CDF tables
 (shipped as data) and tables quantized from the same pmf must be equal,
 and rANS streams byte-identical to the JAX package's ``RansCoder`` (the
 cases of tests/test_rans.py), with each side decoding the other's bytes.
+
+The z coder's tables are built from the entropy bottleneck's weights by
+each package in its own float32 (ROADMAP C-5), so they are held equal for
+the weights users run: every committed checkpoint under ``artifacts/``.
+The constructor's weights are the known case where they differ.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -18,7 +25,7 @@ from epic_tpu.entropy import coder as jcoder
 from epic_tpu.entropy import gaussian as jgaussian
 from epic_tpu.entropy.ops import lower_bound as j_lower_bound
 from epic_tpu.entropy.ops import nn_param_apply as j_nn_param_apply
-from epic_tpu_torch.convert import from_jax_params
+from epic_tpu_torch.convert import _as_f32, from_jax_params
 from epic_tpu_torch.entropy import coder, gaussian
 from epic_tpu_torch.entropy.bottleneck import EntropyBottleneck
 from epic_tpu_torch.entropy.ops import lower_bound, nn_param_apply
@@ -152,6 +159,49 @@ def test_bottleneck_likelihood_and_tables():
     np.testing.assert_array_equal(med, med_j)
     for f in ("quantized_cdf", "cdf_length", "offset"):
         np.testing.assert_array_equal(getattr(tables, f), getattr(ref, f))
+
+
+ARTIFACTS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "artifacts")
+CHECKPOINTS = sorted(d for d in os.listdir(ARTIFACTS)
+                     if os.path.isfile(os.path.join(ARTIFACTS, d, "last.npz")))
+
+
+def _z_tables_differ(params) -> int:
+    """The entropy bottleneck's arrays -> the number of quantized CDF
+    entries in which the two packages' z tables differ (lengths, offsets
+    and medians asserted equal)."""
+    c = params["quantiles"].shape[0]
+    eb = EntropyBottleneck(c)
+    eb.load_state_dict({k: torch.from_numpy(v) for k, v in params.items()})
+    tables, med = eb.cdf_tables()
+    ref, med_j = jbottleneck.build_bottleneck_cdf_tables(
+        jbottleneck.EntropyBottleneck(c),
+        {"params": {k: jnp.asarray(v) for k, v in params.items()}})
+    np.testing.assert_array_equal(med, med_j)
+    for f in ("cdf_length", "offset"):
+        np.testing.assert_array_equal(getattr(tables, f), getattr(ref, f))
+    return int((tables.quantized_cdf != ref.quantized_cdf).sum())
+
+
+@pytest.mark.parametrize("ckpt", CHECKPOINTS)
+def test_committed_checkpoint_z_tables_equal(ckpt):
+    """Only the bottleneck's arrays are read from the checkpoint."""
+    with np.load(os.path.join(ARTIFACTS, ckpt, "last.npz")) as z:
+        params = {k.split("/", 1)[1]: _as_f32(z[k]) for k in z.files
+                  if k.startswith("entropy_bottleneck/")}
+    assert _z_tables_differ(params) == 0
+
+
+@pytest.mark.xfail(strict=True, reason=(
+    "ROADMAP C-5: with the constructor's weights (init_weights keeps them) "
+    "XLA's and PyTorch's float32 einsum and sigmoid round differently, and "
+    "some z table entries differ by one count"))
+@pytest.mark.parametrize("channels", [32, 192])
+def test_constructor_z_tables_equal(channels):
+    eb = EntropyBottleneck(channels)
+    assert _z_tables_differ({k: v.detach().numpy()
+                             for k, v in eb.state_dict().items()}) == 0
 
 
 def _sym_idx(seed, n, spread=1.0):

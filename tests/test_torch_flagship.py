@@ -29,7 +29,7 @@ from epic_tpu.training.checkpoint import load_checkpoint as j_load
 from epic_tpu_torch import (PICCodec, VarianceMaskingPIC,
                             VarianceMaskingPICREM, get_model,
                             load_checkpoint, progressive_encode)
-from epic_tpu_torch.convert import _flatten
+from epic_tpu_torch.convert import _flatten, to_jax_params
 from epic_tpu_torch.tools.workload import decode_levels
 from epic_tpu_torch.utils.synthetic import synthetic_image
 from test_torch_layers import TINY, random_params
@@ -107,14 +107,24 @@ def _write_ckpt(directory, config, params):
 
 
 def test_legacy_layout_and_missing_banks_raise(tmp_path):
-    legacy = {"cc_mean_0": {"Conv_0": {"kernel": np.zeros((3, 3, 2, 2))}}}
-    _write_ckpt(tmp_path / "legacy", dict(TINY, model="pic"), legacy)
-    with pytest.raises(ValueError, match="per-slice"):
-        load_checkpoint(str(tmp_path / "legacy"))
-    legacy_rem = {"post_latent_0_0": {"x": np.zeros(2)}}
-    _write_ckpt(tmp_path / "legacy_rem", dict(TINY, model="rem"), legacy_rem)
-    with pytest.raises(ValueError, match="per-slice"):
-        load_checkpoint(str(tmp_path / "legacy_rem"))
+    """``artifacts/ckpt_r2`` (a ``rem`` model in the per-slice layout)
+    loads: every array consumed, and the port's stacked weights equal the
+    JAX package's ``stack_legacy_param_nets`` output leaf for leaf. A
+    ``rem`` config without REM banks loads as ``pic`` by default and
+    raises with ``disable_rems_if_missing=False``; ``which="best"`` reads
+    ``best.npz``."""
+    legacy = os.path.join(ROOT, "artifacts", "ckpt_r2")
+    model, config, step = load_checkpoint(legacy)
+    _, jparams, jconfig, jstep = j_load(legacy)
+    assert isinstance(model, VarianceMaskingPICREM)
+    assert config["model"] == jconfig["model"] == "rem"
+    assert step == jstep == 4000
+    flat = list(_flatten(jparams))
+    assert len(flat) == len(model.state_dict())
+    back = dict(_flatten(to_jax_params(model)))
+    for path, a in flat:
+        np.testing.assert_array_equal(back[path], np.asarray(a),
+                                      err_msg="/".join(path))
 
     import jax
 
@@ -127,11 +137,21 @@ def test_legacy_layout_and_missing_banks_raise(tmp_path):
                    check_levels=[0.25, 0.75])
     _write_ckpt(tmp_path / "no_banks", rem_cfg, params)
     with pytest.raises(ValueError, match="without REM banks"):
-        load_checkpoint(str(tmp_path / "no_banks"))
-    model, config, step = load_checkpoint(str(tmp_path / "no_banks"),
-                                          disable_rems_if_missing=True)
+        load_checkpoint(str(tmp_path / "no_banks"),
+                        disable_rems_if_missing=False)
+    model, config, step = load_checkpoint(str(tmp_path / "no_banks"))
     assert type(model) is VarianceMaskingPIC and config["model"] == "pic"
     assert "check_levels" not in config and step == 3
+    best = dict(params, h_a=dict(params["h_a"]))
+    best["h_a"]["Conv_0"] = dict(params["h_a"]["Conv_0"],
+                                 bias=params["h_a"]["Conv_0"]["bias"] + 1)
+    np.savez(tmp_path / "no_banks" / "best.npz",
+             **{"/".join(p): np.asarray(a) for p, a in _flatten(best)})
+    got = load_checkpoint(str(tmp_path / "no_banks"), "best")[0]
+    np.testing.assert_array_equal(got.state_dict()["h_a.Conv_0.bias"],
+                                  best["h_a"]["Conv_0"]["bias"])
+    assert not torch.equal(got.state_dict()["h_a.Conv_0.bias"],
+                           model.state_dict()["h_a.Conv_0.bias"])
 
 
 def _encode(flagship, which):

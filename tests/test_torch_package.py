@@ -38,24 +38,21 @@ def test_imports_without_jax_flax_pil():
             "import epic_tpu_torch.training.checkpoint\n"
             "import epic_tpu_torch.data.device_bank as db\n"
             "import epic_tpu_torch.cli.train_device\n"
+            "import epic_tpu_torch.cli.codec, epic_tpu_torch.cli.demo\n"
+            "import epic_tpu_torch.training.evaluate\n"
+            "import epic_tpu_torch.utils.parser, epic_tpu_torch.data.png\n"
             "try:\n"
-            "    db.load_teaser_images()\n"
-            "except RuntimeError as e:\n"
-            "    assert 'Pillow' in str(e)\n"
+            "    db.load_teaser_images('no/such/teaser.png')\n"
+            "except FileNotFoundError as e:\n"
+            "    assert 'teaser image not found' in str(e)\n"
             "else:\n"
-            "    raise AssertionError('no error without Pillow')\n"
+            "    raise AssertionError('no error without the teaser')\n"
             "assert not [m for m in sys.modules if m.split('.')[0] in "
             f"{_BLOCKED!r} and sys.modules[m] is not None]\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-
-
-# The one Pillow import the port has: inside the teaser loader that only
-# ``cli.train_device.main`` calls, which raises a clear error without Pillow
-# (test_imports_without_jax_flax_pil); nothing imports Pillow on import.
-_PIL_LOADER = ("device_bank.py", "        from PIL import Image\n")
 
 
 def test_no_import_of_the_jax_package_in_the_port():
@@ -65,8 +62,7 @@ def test_no_import_of_the_jax_package_in_the_port():
     for d, _, names in os.walk(os.path.join(ROOT, "epic_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     hits = [f"{f}:{i}" for f in files
-            for i, line in enumerate(open(f), 1) if pat.match(line)
-            and (os.path.basename(f), line) != _PIL_LOADER]
+            for i, line in enumerate(open(f), 1) if pat.match(line)]
     assert not hits
 
 

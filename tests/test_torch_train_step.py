@@ -344,6 +344,8 @@ class Small(torch.nn.Module):
     """Parameters named as the model's: two trainable groups in
     refine_gs_ga, one frozen, and the quantiles."""
 
+    multiple_encoder = multiple_decoder = True  # branch-suffixed names
+
     def __init__(self, tree):
         super().__init__()
         for group, leaves in tree.items():
