@@ -7,6 +7,11 @@ then drives the main path once at full width and checks what comes out.
 Phases, one progress line each (flush=True):
  1. environment: torch / CUDA versions, the card's name and power limit,
     nvcc's version;
+ 1b. z tables: the entropy bottleneck's CDF tables computed by the port on
+    this host (which has no JAX) for the two cases of
+    ``tests/fixtures/z_tables_jax.npz`` (the constructor's weights and a
+    seeded draw, 192 channels, their arrays stored beside them), equal bit
+    for bit to the JAX package's tables stored there;
  2. build: the GDN kernel and its backward (nvcc, sm_90a) and the host
     rANS library (g++), started together;
  3. kernels: fused GDN and inverse GDN against ``gdn_plain``, max relative
@@ -28,8 +33,10 @@ Phases, one progress line each (flush=True):
     (dx, dgamma, dbeta) against autograd through ``gdn_plain``, norm-wise
     (max abs error over max abs value): dx and u within 1e-5, dgamma and
     dbeta within 1e-4; at a training step's rows (262,144 / 65,536 /
-    16,384, timed beside the plain version and the bound), at ragged R,
-    at every C (R = 333), and on a side stream bitwise;
+    16,384 / 4,096, timed beside the plain version, the whole
+    ``gdn_backward`` with its dgamma / dbeta reductions, the bound and the
+    mma.sync floor at the SM clock read under load), at ragged R, at every
+    C (R = 333), and on a side stream bitwise;
  4. ``pic`` path: the full-width ``pic`` model (N=192, M=640, division
     (320, 640), dim_chunk 32, bf16 compute, random weights from a seed) on
     a seeded synthetic 768x512 image (``epic_tpu_torch/tools/workload.py``):
@@ -156,6 +163,9 @@ BWD_REL_TOL = 1e-5
 # dgamma and dbeta against autograd: sums over every row, reduced by cuBLAS
 # from the kernel's u and by autograd from its own
 WGRAD_REL_TOL = 1e-4
+# mma.sync TF32 m16n8k8 issues at one per 8 clocks per SM sub-partition on
+# the H100 (python3 -m epic_tpu_torch.tools.gdn_phases, the mma_only copies)
+MMA_CLOCKS = 8
 # progressive_decode_all against the per-level decode, x_hat in [0, 1]. cuDNN
 # picks other convolution kernels for the folded batch (15 levels) than for
 # batch 1, and they round bf16 work differently; with cuDNN off the two
@@ -194,6 +204,36 @@ def phase_environment() -> str:
     log(smi)
     log("[1 env] nvcc: " + (nvcc.stdout.strip().splitlines() or ["?"])[-1])
     return smi
+
+
+def phase_z_tables() -> None:
+    """The port's z tables on this host against the JAX package's, stored
+    with the bottleneck arrays they come from (tests/gen_torch_z_tables.py)."""
+    from epic_tpu_torch.entropy.bottleneck import EntropyBottleneck
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixtures", "z_tables_jax.npz")
+    with np.load(path) as z:
+        for case in ("constructor", "seeded"):
+            arrays = {k.rsplit("/", 1)[1]: torch.from_numpy(z[k])
+                      for k in z.files if k.startswith(f"{case}/arrays/")}
+            eb = EntropyBottleneck(arrays["quantiles"].shape[0])
+            eb.load_state_dict(arrays)
+            t0 = time.perf_counter()
+            tables, medians = eb.cdf_tables()
+            ms = 1e3 * (time.perf_counter() - t0)
+            got = {"quantized_cdf": tables.quantized_cdf,
+                   "cdf_length": tables.cdf_length, "offset": tables.offset,
+                   "medians": medians}
+            for k, v in got.items():
+                want = z[f"{case}/tables/{k}"]
+                if v.shape != want.shape or v.tobytes() != want.tobytes():
+                    raise AssertionError(f"z tables, {case}: {k} differs "
+                                         "from the JAX package's")
+            log(f"[1b z tables] {case}: {tables.quantized_cdf.shape[0]} "
+                f"channels, {tables.quantized_cdf.size} CDF entries, "
+                f"lengths, offsets and medians bit for bit the JAX "
+                f"package's ({ms:.1f} ms on this host)")
 
 
 def phase_build():
@@ -404,6 +444,18 @@ def gdn_bwd_bounds_ms(rows: int, c: int, peak: tuple):
                                        else "bytes")
 
 
+def gdn_bwd_mma_floor_ms(rows: int, c: int, sm_mhz: float) -> float:
+    """The least time of the backward kernel's mma.sync 3xTF32 design: its
+    busiest SM walks ceil(tiles / SMs) 32-row tiles of 2 products x 3
+    passes x 2 x ceil(C / 8)^2 MMAs, four sub-partitions issuing one each
+    MMA_CLOCKS clocks, at the SM clock nvidia-smi reads under load."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = -(-rows // 32)
+    mmas = 2 * 3 * 2 * (-(-c // 8)) ** 2
+    clocks = -(-tiles // sms) * mmas * MMA_CLOCKS / 4
+    return clocks / (sm_mhz * 1e3)
+
+
 def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
     """max |got - want| over max |want| (norm-wise: dx sums terms of both
     signs and may cancel to 0, where an elementwise ratio means nothing)."""
@@ -449,9 +501,10 @@ def phase_backward_kernel(smi: str):
     (timed: kernel, plain, bound), at ragged R, at every C it takes (R =
     333), and on a side stream bitwise the main stream's. Returns the rows
     checked, per kind."""
-    from epic_tpu_torch.ops.gdn_kernel import (MAX_CHANNELS,
+    from epic_tpu_torch.ops.gdn_kernel import (MAX_CHANNELS, gdn_backward,
                                                gdn_backward_rows,
                                                gdn_backward_rows_plain)
+    from epic_tpu_torch.tools.gdn_phases import sm_clock_mhz_under_load
 
     dev = torch.device("cuda")
     peak = peaks(smi)
@@ -469,16 +522,26 @@ def phase_backward_kernel(smi: str):
                                   beta, g, inverse)
             ms = time_cuda(lambda: gdn_backward_rows(x, gamma, beta, g,
                                                      inverse))
+            total_ms = time_cuda(lambda: gdn_backward(x, gamma, beta, g,
+                                                      inverse))
             plain_ms = time_cuda(lambda: gdn_backward_rows_plain(
                 x, gamma, beta, g, inverse))
             bound, by = gdn_bwd_bounds_ms(rows, c, peak)
+            if rows == GDN_BWD_ROWS[0]:  # about a second of launches
+                mhz = sm_clock_mhz_under_load(lambda: gdn_backward_rows(
+                    x, gamma, beta, g, inverse), int(1000 / ms) + 1)
+            floor = gdn_bwd_mma_floor_ms(rows, c, mhz)
             per_shape.append(dict(rows=rows, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=bound, bound_by=by, **errs))
+                                  bound_ms=bound, bound_by=by,
+                                  backward_total_ms=total_ms,
+                                  mma_floor_ms=floor, **errs))
             log(f"[3b backward] {name} R={rows} C={c}: rel err dx "
                 f"{errs['dx']:.2e} u {errs['u']:.2e}, against autograd dx "
                 f"{errs['dx_autograd']:.2e} dgamma {errs['dgamma']:.2e} "
-                f"dbeta {errs['dbeta']:.2e}; kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}) [{smi}]")
+                f"dbeta {errs['dbeta']:.2e}; kernel {ms:.4f} ms, with the "
+                f"dgamma / dbeta reductions {total_ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), mma.sync "
+                f"floor {floor:.4f} ms at {mhz:.0f} MHz [{smi}]")
         worst = 0.0
         for rows in GDN_RAGGED_ROWS:
             x, gm, b = _gdn_data(rows, c, rng, dev)
@@ -1422,6 +1485,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     t_start = time.perf_counter()
     smi = phase_environment()
+    phase_z_tables()
     phase_build()
     per_shape = phase_kernels(smi)
     bwd_shapes = phase_backward_kernel(smi)
@@ -1470,7 +1534,9 @@ def main() -> int:
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": None, "rows": top["rows"],
             "launches_by_path": {k: n[name] for k, n in backward.items()},
-            "max_rel_err_dx": max(r["dx"] for r in bwd_shapes[name])})
+            "max_rel_err_dx": max(r["dx"] for r in bwd_shapes[name]),
+            "backward_total_ms": top["backward_total_ms"],
+            "mma_floor_ms": top["mma_floor_ms"]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,7 +10,6 @@ match the JAX package's module, so weights carry across one to one.
 
 from __future__ import annotations
 
-import copy
 import math
 from typing import Tuple
 
@@ -19,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import xla_f32
 from .gaussian import CdfTables, quantize_pmf_rows
 from .ops import lower_bound, uniform_noise
 
@@ -109,12 +109,14 @@ class EntropyBottleneck(nn.Module):
 
     @torch.no_grad()
     def cdf_tables(self, precision: int = 16):
-        """Quantized CDF tables of every channel plus the float32 medians,
-        evaluated on the host in float32 wherever the module lives, so that
-        the tables do not depend on the device."""
-        if self.quantiles.device.type != "cpu":
-            return copy.deepcopy(self).cpu().cdf_tables(precision)
-        quantiles = self.quantiles[:, 0, :].detach().float().cpu().numpy()
+        """Quantized CDF tables of every channel plus the float32 medians.
+        The pmf grid is evaluated on the host by ``xla_f32.pmf_grid``, which
+        rounds every float32 operation as the JAX package's CPU program
+        does, so the tables equal the JAX package's bit for bit for any
+        weights, on any host and wherever the module lives."""
+        params = {k: v.detach().float().cpu().numpy()
+                  for k, v in self.named_parameters()}
+        quantiles = params["quantiles"][:, 0, :]
         medians = quantiles[:, 1]
         minima = np.clip(np.ceil(medians - quantiles[:, 0]).astype(np.int32),
                          0, None)
@@ -122,14 +124,8 @@ class EntropyBottleneck(nn.Module):
                          0, None)
         pmf_start = medians - minima
         pmf_length = (maxima + minima + 1).astype(np.int32)
-        max_length = int(pmf_length.max())
-        samples = (torch.arange(max_length, dtype=torch.float32)[None, None, :]
-                   + torch.as_tensor(pmf_start, dtype=torch.float32)[:, None, None])
-        pmf, lower, upper = self._pmf(samples)
-        tail = (torch.sigmoid(lower[:, 0, 0])
-                + torch.sigmoid(-upper[:, 0, -1]))
-        cdf = quantize_pmf_rows(pmf[:, 0, :].numpy(), tail.numpy(),
-                                pmf_length, precision)
+        pmf, tail = xla_f32.pmf_grid(params, pmf_start, int(pmf_length.max()))
+        cdf = quantize_pmf_rows(pmf, tail, pmf_length, precision)
         tables = CdfTables(quantized_cdf=cdf.astype(np.int32),
                            cdf_length=(pmf_length + 2).astype(np.int32),
                            offset=(-minima).astype(np.int32))

@@ -1,22 +1,35 @@
-"""Where the GDN kernel's time goes, on the card.
+"""Where the GDN kernels' time goes, on the card.
 
-Builds copies of ``csrc/gdn.cu`` with clock64 timers around its phases
-(gamma and first-tile load, tile waits, the MMA loop, the epilogue) and, as
-variants, with one change each; times every copy with CUDA events at
-R = 98,304 and 21 (C = 192) and prints block 0's phase clocks and whether
-its output equals the unchanged kernel's bitwise. Run on the GPU machine:
+Forward: builds copies of ``csrc/gdn.cu`` with clock64 timers around its
+phases (gamma and first-tile load, tile waits, the MMA loop, the epilogue)
+and, as variants, with one change each; times every copy with CUDA events
+at R = 98,304 and 21 (C = 192) and prints block 0's phase clocks and
+whether its output equals the unchanged kernel's bitwise.
 
-    python3 -m epic_tpu_torch.tools.gdn_phases
+Backward: builds ``csrc/gdn_bwd.cu`` with ``-DGDN_PHASES`` (its clock64
+timers: gamma and the first tile, tile waits, product 1, epilogue 1,
+product 2, epilogue 2, waits for the tensor-core turn) and with
+``-DGDN_PHASES -DGDN_MMA_ONLY`` (the products' MMAs with no operand loads:
+not the backward's output, the MMAs alone); times both, and the library
+that ``ops/gdn_kernel.py`` builds, at a first_train step's R = 262,144 /
+65,536 / 16,384 (C = 192), with the SM clock nvidia-smi reads under load;
+prints block 0's clocks (thread 0, so its group's), and whether the timed
+copy's dx and u equal the library's bitwise. ``--bwd-source PATH`` adds
+another backward source (an earlier version, say), timed in the same run.
 
-Variants: ``split4`` hands the MMA the unmasked hi operand (the MMA reads
-only its TF32 bits), one integer operation less per split; ``16_warps``
-runs 16 warps of 3 n-fragments instead of 8 of 6; ``mma_only`` keeps the
-k-loop's MMAs and drops its loads and splits (its output is not GDN's:
-it times the MMAs alone).
+    python3 -m epic_tpu_torch.tools.gdn_phases [--part forward|backward]
+        [--bwd-source PATH ...]
+
+Forward variants: ``split4`` hands the MMA the unmasked hi operand (the MMA
+reads only its TF32 bits), one integer operation less per split;
+``16_warps`` runs 16 warps of 3 n-fragments instead of 8 of 6;
+``mma_only`` keeps the k-loop's MMAs and drops its loads and splits (its
+output is not GDN's: it times the MMAs alone).
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
 import subprocess
@@ -24,7 +37,8 @@ import subprocess
 import numpy as np
 import torch
 
-from ..ops.gdn_kernel import HEADER, SOURCE, _BUILD_DIR, _nvcc
+from ..ops.gdn_kernel import (BACKWARD_SOURCE, HEADER, SOURCE, _BUILD_DIR,
+                               _nvcc, gdn_backward_rows)
 
 _TIMERS = [
     ("#include <cstdint>\n",
@@ -148,12 +162,133 @@ def _ms(fn, n: int = 50) -> float:
     return start.elapsed_time(end) / n
 
 
-def main() -> int:
+# the backward copies: name -> (source, extra nvcc flags)
+_BWD_PHASES = ["-DGDN_PHASES"]
+_BWD_MMA_ONLY = ["-DGDN_PHASES", "-DGDN_MMA_ONLY"]
+_BWD_PHASE_NAMES = ("gamma + first tile", "tile waits", "product 1",
+                    "epilogue 1", "product 2", "epilogue 2", "turn waits",
+                    "total")
+BWD_ROWS = (262_144, 65_536, 16_384)
+
+
+def build_backward(extra_sources=()):
+    """Compile the backward copies (one nvcc each, all started together);
+    returns {name: (ctypes library, has phase clocks)}."""
+    out = os.path.join(_BUILD_DIR, "phases")
+    os.makedirs(out, exist_ok=True)
+    jobs = {"bwd": (BACKWARD_SOURCE, _BWD_PHASES),
+            "bwd_mma_only": (BACKWARD_SOURCE, _BWD_MMA_ONLY)}
+    for i, path in enumerate(extra_sources):
+        jobs[f"extra{i}"] = (os.path.abspath(path), _BWD_PHASES)
+    procs = {}
+    for name, (src, flags) in jobs.items():
+        procs[name] = subprocess.Popen(
+            [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+             "-Xptxas", "-v", *flags, src, "-o",
+             os.path.join(out, f"lib{name}.so")],
+            stderr=subprocess.PIPE, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        err = proc.communicate()[1]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{err}")
+        for line in err.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}", flush=True)
+        lib = ctypes.CDLL(os.path.join(out, f"lib{name}.so"))
+        lib.epic_gdn_backward.restype = ctypes.c_int
+        lib.epic_gdn_backward.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        libs[name] = (lib, hasattr(lib, "epic_gdn_bwd_phases"))
+    for i, path in enumerate(extra_sources):
+        print(f"extra{i}: {path}", flush=True)
+    return libs
+
+
+def sm_clock_mhz_under_load(fn, launches: int = 1000) -> float:
+    """The SM clock (MHz) that nvidia-smi reads while `launches` calls of
+    fn are queued on the card (the clock drops when it idles)."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(launches):
+        fn()
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    torch.cuda.synchronize()
+    return float(out.split()[0])
+
+
+def run_backward(extra_sources=()) -> None:
+    libs = build_backward(extra_sources)
+    rng = np.random.default_rng(0)
+    c = 192
+    gamma = torch.as_tensor((0.1 * np.eye(c) + 0.01 * rng.random((c, c)))
+                            .astype(np.float32), device="cuda")
+    beta = torch.as_tensor((1.0 + 0.1 * rng.random(c)).astype(np.float32),
+                           device="cuda")
+    for rows in BWD_ROWS:
+        x = torch.as_tensor(rng.normal(0, 1, (rows, c)).astype(np.float32),
+                            device="cuda")
+        g = torch.as_tensor(rng.normal(0, 1, (rows, c)).astype(np.float32),
+                            device="cuda")
+        for inverse in (0, 1):
+            kind = "igdn" if inverse else "gdn "
+            want = gdn_backward_rows(x, gamma, beta, g, bool(inverse))
+            ms = _ms(lambda: gdn_backward_rows(x, gamma, beta, g,
+                                               bool(inverse)))
+            print(f"R={rows} library      {kind} {ms:.4f} ms", flush=True)
+            if rows == BWD_ROWS[0]:
+                mhz = sm_clock_mhz_under_load(lambda: gdn_backward_rows(
+                    x, gamma, beta, g, bool(inverse)))
+                print(f"SM clock under load: {mhz:.0f} MHz", flush=True)
+            for name, (lib, clocks) in libs.items():
+                dx, u = torch.empty_like(x), torch.empty_like(x)
+
+                def launch():
+                    rc = lib.epic_gdn_backward(
+                        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                        g.data_ptr(), dx.data_ptr(), u.data_ptr(), rows, c,
+                        inverse, torch.cuda.current_stream().cuda_stream)
+                    if rc:
+                        raise RuntimeError(f"launch failed: CUDA error {rc}")
+
+                ms = _ms(launch)
+                launch()
+                torch.cuda.synchronize()
+                same = torch.equal(dx, want[0]) and torch.equal(u, want[1])
+                line = (f"R={rows} {name:12s} {kind} {ms:.4f} ms, dx and u "
+                        f"equal to the library's: {same}")
+                if clocks:
+                    clk = (ctypes.c_longlong * 8)()
+                    lib.epic_gdn_bwd_phases(clk)
+                    line += "; block 0 clocks: " + ", ".join(
+                        f"{n} {v}" for n, v in zip(_BWD_PHASE_NAMES, clk))
+                print(line, flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--part", choices=("forward", "backward", "both"),
+                    default="both")
+    ap.add_argument("--bwd-source", action="append", default=[],
+                    help="another backward source to time beside the "
+                         "repository's")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("gdn_phases: no CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
+    if args.part != "forward":
+        run_backward(args.bwd_source)
+    if args.part != "backward":
+        run_forward()
+    return 0
+
+
+def run_forward() -> None:
     libs = build()
     rng = np.random.default_rng(0)
     c = 192
@@ -189,7 +324,6 @@ def main() -> int:
                       f"block 0 clocks: gamma + first tile {clk[0]}, tile "
                       f"waits {clk[1]}, MMA loop {clk[2]}, epilogue "
                       f"{clk[3]}, total {clk[4]}", flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -6,10 +6,13 @@ rtol 1e-5, atol 1e-7); CDF-table indexes, the default quantized CDF tables
 and rANS streams byte-identical to the JAX package's ``RansCoder`` (the
 cases of tests/test_rans.py), with each side decoding the other's bytes.
 
-The z coder's tables are built from the entropy bottleneck's weights by
-each package in its own float32 (ROADMAP C-5), so they are held equal for
-the weights users run: every committed checkpoint under ``artifacts/``.
-The constructor's weights are the known case where they differ.
+The z coder's tables are built from the entropy bottleneck's weights; the
+port evaluates the pmf grid as the JAX package's CPU program rounds it
+(``entropy/xla_f32.py``), so they are held equal for any weights: every
+committed checkpoint under ``artifacts/``, the constructor's weights and a
+seeded draw with nonzero factors; and ``tests/fixtures/z_tables_jax.npz``
+(written by ``tests/gen_torch_z_tables.py``, checked by chip_smoke.py on a
+host without JAX) is held equal to the JAX package's tables.
 """
 
 import os
@@ -30,6 +33,7 @@ from epic_tpu_torch.entropy import coder, gaussian
 from epic_tpu_torch.entropy.bottleneck import EntropyBottleneck
 from epic_tpu_torch.entropy.ops import lower_bound, nn_param_apply
 from gen_torch_cdf_tables import reference_arrays
+import gen_torch_z_tables
 
 
 def _gauss_pmf(scale, length):
@@ -193,15 +197,30 @@ def test_committed_checkpoint_z_tables_equal(ckpt):
     assert _z_tables_differ(params) == 0
 
 
-@pytest.mark.xfail(strict=True, reason=(
-    "ROADMAP C-5: with the constructor's weights (init_weights keeps them) "
-    "XLA's and PyTorch's float32 einsum and sigmoid round differently, and "
-    "some z table entries differ by one count"))
 @pytest.mark.parametrize("channels", [32, 192])
 def test_constructor_z_tables_equal(channels):
     eb = EntropyBottleneck(channels)
     assert _z_tables_differ({k: v.detach().numpy()
                              for k, v in eb.state_dict().items()}) == 0
+
+
+def test_seeded_z_tables_equal():
+    """Every array drawn with numpy at 192 channels, factors nonzero (so
+    tanh is exercised; the constructor's factors are zero)."""
+    assert _z_tables_differ(gen_torch_z_tables.seeded_arrays()) == 0
+
+
+def test_z_table_fixture_is_jax():
+    """The fixture chip_smoke.py checks the port against (on a host with no
+    JAX) holds the JAX package's tables for the arrays it stores."""
+    path = gen_torch_z_tables.OUT
+    with np.load(path) as z:
+        for case in ("constructor", "seeded"):
+            arrays = {k.rsplit("/", 1)[1]: z[k] for k in z.files
+                      if k.startswith(f"{case}/arrays/")}
+            want = gen_torch_z_tables.jax_tables(arrays)
+            for k, v in want.items():
+                np.testing.assert_array_equal(z[f"{case}/tables/{k}"], v)
 
 
 def _sym_idx(seed, n, spread=1.0):

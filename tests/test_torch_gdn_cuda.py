@@ -7,8 +7,9 @@ round trips through the kernel. The backward kernel against its plain
 version (dx and u within 1e-5 of their largest magnitude) and ``GDN``'s
 gradients through both kernels against autograd through ``gdn_plain``
 (dgamma / dbeta within 1e-4: sums over every row in another order), at
-small and ragged R, every width, on a side stream bitwise, and a tiny
-training step through the kernels.
+small and ragged R, every width, at the edges of its persistent grid, on a
+side stream and from launch to launch bitwise, and a tiny training step
+through the kernels.
 They skip without a device. This file imports no JAX, so on a machine
 without it run it without the repository's conftest:
 
@@ -214,6 +215,37 @@ def test_backward_kernel_side_stream_bitwise(inverse):
         got = gdn_backward_rows(x, gamma, beta, g, inverse)
     s.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _ring_rows(edge):
+    """Row counts at the edges of the backward kernel's persistent grid (one
+    block per SM, 32-row tiles): one tile fewer than, as many as and one
+    more than 2 tiles per block, and fewer tiles than blocks. At -1 and +1
+    some blocks walk one tile more than others; a block's last tile skips
+    the next x prefetch."""
+    tiles = 32 * torch.cuda.get_device_properties(0).multi_processor_count
+    return {"k-1": 2 * tiles - 1, "k": 2 * tiles, "k+1": 2 * tiles + 1,
+            "below": tiles - 40}[edge]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", ["k-1", "k", "k+1", "below"])
+@pytest.mark.parametrize("inverse", [False, True], ids=["gdn", "igdn"])
+def test_backward_kernel_ring_edges(edge, inverse):
+    _need_cuda()
+    _check_backward(_ring_rows(edge), 192, inverse, seed=7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True], ids=["gdn", "igdn"])
+def test_backward_kernel_two_launches_bitwise(inverse):
+    _need_cuda()
+    x, gamma, beta = _data(_ring_rows("k+1"), 192, seed=8)
+    g = torch.randn_like(x)
+    first = gdn_backward_rows(x, gamma, beta, g, inverse)
+    second = gdn_backward_rows(x, gamma, beta, g, inverse)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda
