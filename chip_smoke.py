@@ -108,14 +108,28 @@ Phases, one progress line each (flush=True):
     (``training=False``) on the weights and batch of
     ``tests/fixtures/first_train_jax.json`` (SHA-256 checked), side by
     side with the fixture's: within 1% through step 2, at step 3 both
-    above or both below 3x step 2, and falling after it in both.
+    above or both below 3x step 2, and falling after it in both;
+15. the host-loader trainer: ``cli.train.main`` in this process at the JAX
+    CLI's defaults (N=192, M=640, division 320 / 640, dim_chunk 32, float32,
+    batch 16, patch 256) on PNG files it writes (18 synthetic 512x768
+    train images, a five-filter and a palette one, 4 in the test split, 2
+    test images): first_train, 2 epochs of 3 steps (validations, the
+    plateau, checkpoints, the real codec's evaluation), then rems with
+    ``--model rem`` from its checkpoint (fresh REM banks), 1 epoch of 2
+    steps; launches per step equal to a ``train_device`` step's, and per
+    run; steps/s, peak memory, load against step seconds, validation,
+    evaluation and save seconds; then ``tools.make_artifact`` on the rems
+    checkpoint: every array the bf16 cast of the float32 one's, the dead
+    rows zero, its bytes beside the committed flagship's, and a
+    progressive encode / decode of levels 0..15 with it bitwise between
+    encoder and decoder. The phase must finish within 300 s.
 
 Each path's kernel launches are counted from zero and must match its count
 (GDN 6 per encode or ``compress``; IGDN 3 per decoded level, 48 for
 levels 0..15, 9 per ``decode_all``, 3 per ``decompress``; 15 per pipelined
 sweep of 4 images; WACNN 3 GDN per ``compress`` and 3 IGDN per
-``decompress``; the training launches in phases 9, 11 and 14; the file CLI
-and RD evaluation in phases 12-13; no inference path launches the
+``decompress``; the training launches in phases 9, 11, 14 and 15; the file
+CLI and RD evaluation in phases 12-13; no inference path launches the
 backward kernel). Any failure raises and exits non-zero. The line before
 the last is the kernels' JSON record; the last line is the device record.
 Needs one CUDA device and no network; writes only into the package's
@@ -124,7 +138,9 @@ build directories and a temporary directory it removes.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
 import math
 import os
@@ -1478,6 +1494,283 @@ def phase_first_train_vs_jax():
     return fwd, bwd
 
 
+# phase 15: the host-loader trainer (cli.train) at its defaults of width,
+# batch (16) and patch (256), float32, on PNG files written here: 18
+# synthetic train images, a five-filter one and a palette one, 4 in the test
+# split, 2 "kodak" test images, all 512 x 768
+HOST_TRAIN, HOST_VALID, HOST_TEST = 18, 4, 2
+HOST_VALID_BATCH = 4
+# a validation: 4 batches x valid_epoch's 7 qualities x (the eval forward +
+# the loss forward); an evaluation: compress_with_ac at 6 qualities and
+# test_epoch at 15 on each test image
+HOST_VAL_FORWARDS = 4 * 7 * 2
+HOST_EVAL_PR, HOST_TEST_Q = 6, 15
+HOST_RUNS = {"first_train": {"epochs": 2, "steps": 3},
+             "rems": {"epochs": 1, "steps": 2}}
+COMMITTED_FLAGSHIP_BYTES = 250_480_975  # artifacts/ckpt_r5_flagship/last.npz
+
+
+def _write_palette_png(path: str, rgb: np.ndarray) -> np.ndarray:
+    """rgb quantised to a 6 x 7 x 6 palette (252 entries) and written as an
+    8-bit palette PNG (filter 0); returns the RGB image the file holds."""
+    levels = np.array([6, 7, 6])
+    idx = np.zeros(rgb.shape[:2], np.int64)
+    for c, n in enumerate(levels):
+        idx = idx * n + rgb[..., c].astype(np.int64) * n // 256
+    grid = np.stack(np.meshgrid(*[np.arange(n) for n in levels],
+                                indexing="ij"), -1).reshape(-1, 3)
+    palette = (grid * 255 // (levels - 1)).astype(np.uint8)
+    h, w = idx.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           idx.astype(np.uint8)], axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 3, 0, 0, 0))
+                + chunk(b"PLTE", palette.tobytes())
+                + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+                + chunk(b"IEND", b""))
+    return palette[idx]
+
+
+def _host_trainer_data(root: str):
+    """The PNG files of phase 15 under ``root``; returns (training dataset
+    root, test directory). The five-filter and the palette file are read
+    back bitwise."""
+    from epic_tpu_torch.data.png import read_png, write_png
+    from epic_tpu_torch.utils.synthetic import synth_images, synthetic_image
+
+    dirs = {k: os.path.join(root, *p) for k, p in (
+        ("train", ("trainset", "train", "data")),
+        ("test", ("trainset", "test", "data")), ("kodak", ("kodak",)))}
+    for d in dirs.values():
+        os.makedirs(d)
+    imgs = synth_images(HOST_TRAIN + 2 + HOST_VALID,
+                        np.random.default_rng(15))
+    for i in range(HOST_TRAIN):
+        write_png(os.path.join(dirs["train"], f"im{i:02d}.png"), imgs[i])
+    filtered = os.path.join(dirs["train"], "filtered.png")
+    _write_filtered_png(filtered, imgs[HOST_TRAIN])
+    palette = os.path.join(dirs["train"], "palette.png")
+    want = _write_palette_png(palette, imgs[HOST_TRAIN + 1])
+    if not (np.array_equal(read_png(filtered), imgs[HOST_TRAIN])
+            and np.array_equal(read_png(palette), want)):
+        raise AssertionError("the five-filter or the palette PNG reads back "
+                             "wrong")
+    for i in range(HOST_VALID):
+        write_png(os.path.join(dirs["test"], f"v{i}.png"),
+                  imgs[HOST_TRAIN + 2 + i])
+    for i in range(HOST_TEST):
+        img = synthetic_image(512, 768, seed=20 + i)[0]
+        write_png(os.path.join(dirs["kodak"], f"kodim{i:02d}.png"),
+                  np.round(img * 255).astype(np.uint8))
+    return os.path.join(root, "trainset"), dirs["kodak"]
+
+
+def _host_expected(stage: str):
+    """(forward, backward) launches of one phase-15 run: its steps, a rems
+    step's checkpoint latent, the validations, and the evaluation at the
+    last epoch (rems: two checkpoint latents per image first)."""
+    from epic_tpu_torch.training.stages import make_stage
+
+    r = HOST_RUNS[stage]
+    n, rems = r["epochs"] * r["steps"], stage == "rems"
+    if rems and min(make_stage("rems", check_levels=(0.25, 0.75),
+                               check_levels_np=(24, 24)).list_quality) \
+            <= 0.25:
+        raise AssertionError("a rems quality at or below the first check "
+                             "level takes no checkpoint latent")
+    no_grad = (r["epochs"] * HOST_VAL_FORWARDS + HOST_TEST * HOST_TEST_Q
+               + (n if rems else 0))
+    fwd = {k: n * STEP_LAUNCHES[stage][k] + no_grad * NO_GRAD_LAUNCHES[k]
+           for k in ZERO}
+    fwd["gdn"] += HOST_TEST * (6 * HOST_EVAL_PR + (12 if rems else 0))
+    fwd["igdn"] += HOST_TEST * 3 * HOST_EVAL_PR
+    return fwd, {k: n * STEP_BACKWARD[stage][k] for k in ZERO}
+
+
+def phase_host_trainer(smi: str, work: str):
+    """``cli.train.main`` in this process on the card, at the JAX CLI's
+    default width (N=192, M=640, division 320 / 640, dim_chunk 32), batch
+    16, patch 256, float32, on PNG files read by the host loader: (a)
+    first_train, 2 epochs of 3 steps with ``--patience 0`` and
+    ``--eval_every 2`` (validations, the plateau, checkpoints, the real
+    codec's evaluation); (b) rems with ``--model rem --checkpoint (a)``
+    (the loader's fresh-bank path), 1 epoch of 2 steps; (c)
+    ``tools.make_artifact`` on (b): every array equal to torch's bf16 cast
+    of the float32 checkpoint's with the dead rows zeroed, and a
+    progressive encode / decode of levels 0..15 with it bitwise between
+    encoder and decoder. Launches per training step and per run from zero.
+    Returns (forward, backward) launches."""
+    import epic_tpu_torch as et
+    from epic_tpu_torch.cli import train as cli_train
+    from epic_tpu_torch.convert import _flatten, _stacked_dead_blocks
+    from epic_tpu_torch.convert import to_jax_params
+    from epic_tpu_torch.ops.gdn_kernel import gdn, gdn_backward
+    from epic_tpu_torch.tools import make_artifact
+    from epic_tpu_torch.tools.workload import images
+    from epic_tpu_torch.training import step as step_mod
+    from epic_tpu_torch.training.checkpoint import zero_dead_rows
+
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "host")
+    train_root, kodak = _host_trainer_data(root)
+    save = os.path.join(root, "ckpt")
+    common = ["--training_dataset", train_root, "--test_dataset", kodak,
+              "--save_path", save, "--valid_batch_size",
+              str(HOST_VALID_BATCH)]
+    argv = {
+        "first_train": ["--eval_every", "2", "--patience", "0"],
+        "rems": ["--model", "rem", "--checkpoint",
+                 os.path.join(save, "first_train"), "--check_levels", "0.25",
+                 "0.75", "--check_levels_np", "24", "24", "--dimension",
+                 "middle"]}
+    log(f"[15 host trainer] {HOST_TRAIN + 2} train PNGs (one five-filter, "
+        f"one palette; both read back bitwise), {HOST_VALID} in the test "
+        f"split, {HOST_TEST} test images, 512 x 768, written in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    per_step = []
+    step_call = step_mod.TrainStep.__call__
+
+    def counted_step(self, *args, **kwargs):
+        f0, b0 = dict(gdn.launches), dict(gdn_backward.launches)
+        t = time.perf_counter()
+        out = step_call(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        per_step.append(({k: gdn.launches[k] - f0[k] for k in f0},
+                         {k: gdn_backward.launches[k] - b0[k] for k in b0},
+                         time.perf_counter() - t))
+        return out
+
+    total_f, total_b = dict(ZERO), dict(ZERO)
+    step_mod.TrainStep.__call__ = counted_step
+    try:
+        for stage, r in HOST_RUNS.items():
+            per_step.clear()
+            buf = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rep, fwd, bwd = _counted(lambda: cli_train.main(
+                    common + argv[stage] + [
+                        "--training_type", stage, "--epochs",
+                        str(r["epochs"]), "--steps_per_epoch",
+                        str(r["steps"])]), True)
+            wall = time.perf_counter() - t
+            for line in buf.getvalue().splitlines():
+                log(f"[15 host trainer] cli.train {stage}: {line}")
+            want = (STEP_LAUNCHES[stage], STEP_BACKWARD[stage])
+            if len(per_step) != r["epochs"] * r["steps"] or any(
+                    s[:2] != want for s in per_step):
+                raise AssertionError(f"{stage}: launches per step {per_step}"
+                                     f" (want {want} each, as a "
+                                     "train_device step's)")
+            walls = [s[2] for s in per_step]
+            log(f"[15 host trainer] {stage}: each of {len(per_step)} steps "
+                f"launched forward {want[0]}, backward {want[1]} (a "
+                "train_device step's); TrainStep walls s "
+                + " ".join(f"{v:.4f}" for v in walls) + ", warm "
+                f"{(len(walls) - 1) / sum(walls[1:]):.3f} steps/s")
+            want_f, want_b = _host_expected(stage)
+            _expect("15 host trainer", f"cli.train {stage} forward", fwd,
+                    want_f)
+            _expect("15 host trainer", f"cli.train {stage} backward", bwd,
+                    want_b)
+            _add(total_f, fwd)
+            _add(total_b, bwd)
+            out = buf.getvalue()
+            if stage == "rems" and "initialized REM banks fresh" not in out:
+                raise AssertionError("rems: no fresh REM banks from the "
+                                     "first_train checkpoint")
+            tm = rep["timers"]
+            val = rep["val"]
+            if not (math.isfinite(rep["train_loss"])
+                    and math.isfinite(val["loss"])
+                    and all(map(math.isfinite, rep["real"]["bpp"]
+                                + rep["real"]["psnr"]))):
+                raise AssertionError(f"{stage}: train loss "
+                                     f"{rep['train_loss']}, val {val}, "
+                                     f"real {rep['real']}")
+            log(f"[15 host trainer] {stage}: {rep['steps']} steps in "
+                f"{wall:.1f} s, {rep['steps_per_s']:.3f} steps/s (steps "
+                f"alone, first included, batch 16 x 256^2, float32), peak "
+                f"memory {rep['peak_mem_bytes'] / 2**30:.2f} GiB; load "
+                f"{tm['load']['mean_ms'] / 1e3:.4f} s per batch (16 PNG "
+                f"crops on 8 threads, to the card) against "
+                f"{tm['step']['mean_ms'] / 1e3:.4f} s per step; "
+                f"validation {tm['valid']['total_s']:.2f} s "
+                f"({tm['valid']['count']}x), evaluation "
+                f"{tm['eval']['total_s']:.2f} s, checkpoint save "
+                f"{tm['save']['total_s']:.2f} s ({tm['save']['count']}x); "
+                f"train loss {rep['train_loss']:.4f}, val loss "
+                f"{val['loss']:.4f}, lr {rep['lr']:.2e}; RD plot "
+                + (f"written ({rep['plot']})" if rep["plot"] else
+                   "not written (no matplotlib)") + f" [{smi}]")
+    finally:
+        step_mod.TrainStep.__call__ = step_call
+
+    rems_dir = os.path.join(save, "rems")
+    art = os.path.join(root, "artifact")
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rec = make_artifact.main([rems_dir, art])
+    art_s = time.perf_counter() - t
+    which = rec["src"].rsplit("/", 1)[1]
+    f32_bytes = os.path.getsize(os.path.join(rems_dir, which + ".npz"))
+    nbytes = os.path.getsize(rec["out"])
+    log(f"[15 host trainer] make_artifact: {buf.getvalue().strip()}")
+    ck_model = et.load_checkpoint(rems_dir, which)[0]
+    model, cfg, step = et.load_checkpoint(art)
+    if cfg["model"] != "rem" or step != rec["step"]:
+        raise AssertionError(f"artifact config {cfg['model']} step {step}")
+    got = dict(_flatten(to_jax_params(model)))
+    ck_tree = to_jax_params(ck_model)
+    tree = zero_dead_rows(ck_tree, ck_model)
+    for path, v in _flatten(tree):
+        want = torch.from_numpy(v).to(torch.bfloat16).float().numpy()
+        if not np.array_equal(got[path], want):
+            raise AssertionError(f"artifact {'/'.join(path)} is not the "
+                                 "bf16 cast of the checkpoint's")
+    dead = live = 0
+    for name, count, slots in _stacked_dead_blocks(model):
+        if (name, "Conv_0_kernel") not in got:
+            continue
+        a = got[(name, "Conv_0_kernel")]
+        b = ck_tree[name]["Conv_0_kernel"]
+        for i in range(count):
+            pos, pad = slots(i)
+            rows = (slice(i, i + 1), slice(None), slice(None),
+                    slice(pos, pos + pad))
+            if np.any(a[rows]):
+                raise AssertionError(f"{name} slice {i}: dead rows not zero")
+            dead += a[rows].size
+            live += int(np.count_nonzero(b[rows]))
+    log(f"[15 host trainer] artifact {nbytes} bytes (float32 checkpoint "
+        f"{f32_bytes}; the committed trained flagship "
+        f"{COMMITTED_FLAGSHIP_BYTES}) in {art_s:.1f} s (load + bf16 + zlib "
+        f"on the host); every array the bf16 cast of the checkpoint's, "
+        f"{dead} dead-row entries zero ({live} of them nonzero in the "
+        f"checkpoint) [{smi}]")
+    codec = et.PICCodec(model, device="cuda")
+    x, _ = images()
+    bs, state, outs, n = _encode_and_decode_levels("15 host trainer", codec,
+                                                   x, True)
+    _check_levels("15 host trainer", codec, x, bs, state, outs)
+    _add(total_f, n["encode"])
+    _add(total_f, n["decode"])
+    del codec, model, ck_model, ck_tree, tree, got
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    log(f"[15 host trainer] phase {secs:.1f} s")
+    if secs > 300:
+        raise AssertionError(f"phase 15 took {secs:.1f} s (limit 300 s)")
+    return total_f, total_b
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1505,8 +1798,11 @@ def main() -> int:
     launches.update(phase_rd_eval())
     c2_fwd, c2_bwd = phase_first_train_vs_jax()
     launches["first_train_vs_jax"] = c2_fwd
+    with tempfile.TemporaryDirectory() as work:
+        host_fwd, host_bwd = phase_host_trainer(smi, work)
+    launches["host_trainer"] = host_fwd
     backward = {"training": train_bwd, "wacnn_training": cnn_bwd,
-                "first_train_vs_jax": c2_bwd}
+                "first_train_vs_jax": c2_bwd, "host_trainer": host_bwd}
     kernels = []
     for name in ("gdn", "igdn"):
         top = per_shape[name][0]  # the largest call of the main path

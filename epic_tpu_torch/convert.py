@@ -147,22 +147,17 @@ def _unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
     return root
 
 
-def stack_legacy_param_nets(params: Dict[str, Any], model) -> Dict[str, Any]:
-    """The per-slice layout (``cc_mean_0`` ... with ``Conv_{l}/kernel``
-    [3, 3, in_i, out], ``post_latent_{r}_{i}``) -> the stacked one
-    (``cc_mean/Conv_{l}_kernel`` [S, 3, 3, in, out], ``post_latent_{r}``
-    with a leading slice axis on every leaf), as the JAX package's
-    ``training.checkpoint.stack_legacy_param_nets``. Each slice's ragged
-    first-layer input rows are zero-padded where the fixed-width support
-    layout has slots that slice does not fill:
+def _stacked_dead_blocks(model):
+    """Per stacked head: (name, slices, slot_fn) with ``slot_fn(i) -> (pos,
+    pad)``: slice i's first-layer kernel input rows [pos, pos + pad) meet
+    support channels that the fixed-width layout keeps zero for that slice
+    (the padding that makes the reference's ragged per-slice heads
+    stackable), as the JAX package's ``training.checkpoint.
+    _stacked_dead_blocks``:
 
     - base heads: [d0 | support(k) | zeros]; base lrp: the same, then y_hat;
     - progressive heads: [dp | base_i | zeros | mu_total(k)]; progressive
-      lrp: the same, then y_hat.
-
-    Zero rows meet zero inputs, so the converted weights compute what the
-    per-slice heads did."""
-    p = dict(params)
+      lrp: the same, then y_hat."""
     c, d0 = model.dim_chunk, model.division[0]
     dp = model.division[1] - d0
     nprog = model.ns1 - model.ns0
@@ -178,12 +173,25 @@ def stack_legacy_param_nets(params: Dict[str, Any], model) -> Dict[str, Any]:
              if model.support_progressive_slices > 0 else 0)
         return dp + c, (npg - k) * c
 
-    for name, count, slots in (("cc_mean", model.ns0, slots_base),
-                               ("cc_scale", model.ns0, slots_base),
-                               ("lrp", model.ns0, slots_base),
-                               ("cc_mean_prog", nprog, slots_prog),
-                               ("cc_scale_prog", nprog, slots_prog),
-                               ("lrp_prog", model.ns0, slots_prog)):
+    return [("cc_mean", model.ns0, slots_base),
+            ("cc_scale", model.ns0, slots_base),
+            ("lrp", model.ns0, slots_base),
+            ("cc_mean_prog", nprog, slots_prog),
+            ("cc_scale_prog", nprog, slots_prog),
+            ("lrp_prog", model.ns0, slots_prog)]
+
+
+def stack_legacy_param_nets(params: Dict[str, Any], model) -> Dict[str, Any]:
+    """The per-slice layout (``cc_mean_0`` ... with ``Conv_{l}/kernel``
+    [3, 3, in_i, out], ``post_latent_{r}_{i}``) -> the stacked one
+    (``cc_mean/Conv_{l}_kernel`` [S, 3, 3, in, out], ``post_latent_{r}``
+    with a leading slice axis on every leaf), as the JAX package's
+    ``training.checkpoint.stack_legacy_param_nets``. Each slice's ragged
+    first-layer input rows are zero-padded at the slots that slice does not
+    fill (``_stacked_dead_blocks``). Zero rows meet zero inputs, so the
+    converted weights compute what the per-slice heads did."""
+    p = dict(params)
+    for name, count, slots in _stacked_dead_blocks(model):
         if f"{name}_0" not in p:
             continue
         subs = [p.pop(f"{name}_{i}") for i in range(count)]
@@ -227,16 +235,23 @@ def _model_from_config(config: Dict[str, Any]):
 
 def load_checkpoint(directory: str, which: str = "last",
                     config_overrides: Optional[Dict[str, Any]] = None,
-                    disable_rems_if_missing: bool = True):
+                    disable_rems_if_missing: bool = True, seed: int = 0):
     """A checkpoint directory -> (model, config, step): the model named by
     ``config.json`` (with ``config_overrides`` applied, e.g.
     ``{"compute_dtype": "float32"}``) on the CPU, with every array of
     ``{which}.npz`` ("last" or "best") loaded, as the JAX package's
     ``load_checkpoint`` reads it. The per-slice layout of older checkpoints
-    is stacked first (``stack_legacy_param_nets``). A ``rem`` config whose
-    checkpoint has no REM banks loads as the plain ``pic`` model, as in the
-    JAX package, unless ``disable_rems_if_missing=False``: then it
-    raises."""
+    is stacked first (``stack_legacy_param_nets``).
+
+    A ``rem`` config whose checkpoint has no REM banks (a ``pic``
+    checkpoint loaded with the REM overrides) loads as the plain ``pic``
+    model with the REM fields dropped, as in the JAX package. With
+    ``disable_rems_if_missing=False`` (the REM training stage) it loads as
+    the ``rem`` model instead, ``config`` as given: the checkpoint's arrays
+    merged (``training.checkpoint.merge_params``) over the model's
+    ``init_weights(seed)``, so its banks are fresh, which it prints as the
+    JAX trainer does ("initialized REM banks fresh; merged parent
+    weights")."""
     with open(os.path.join(directory, "config.json")) as f:
         meta = json.load(f)
     config = dict(meta["config"])
@@ -247,13 +262,23 @@ def load_checkpoint(directory: str, which: str = "last",
     model = _model_from_config(config)
     if "cc_mean_0" in params or "post_latent_0_0" in params:
         params = stack_legacy_param_nets(params, model)
+    step = meta.get("step", 0)
     if config["model"] == "rem" and "post_latent_0" not in params:
-        if not disable_rems_if_missing:
-            raise ValueError(f"{directory}: a 'rem' config without REM "
-                             "banks (post_latent_*)")
-        config["model"] = "pic"
-        for k in ("check_levels", "mu_std", "rem_dimension"):
-            config.pop(k, None)
-        model = _model_from_config(config)
+        parent_config = {k: v for k, v in config.items()
+                         if k not in ("check_levels", "mu_std",
+                                      "rem_dimension")}
+        parent_config["model"] = "pic"
+        parent = _model_from_config(parent_config)
+        if disable_rems_if_missing:
+            model, config = parent, parent_config
+        else:
+            from .training.checkpoint import merge_params
+
+            model.init_weights(seed)
+            model.load_state_dict(merge_params(
+                model.state_dict(), from_jax_params(params, parent)))
+            print("initialized REM banks fresh; merged parent weights",
+                  flush=True)
+            return model, config, step
     model.load_state_dict(from_jax_params(params, model))
-    return model, config, meta.get("step", 0)
+    return model, config, step

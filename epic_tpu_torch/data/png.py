@@ -1,10 +1,12 @@
 """PNG files with the standard library's ``zlib`` and numpy (no Pillow).
 
-The reader takes 8-bit, non-interlaced grey, grey + alpha, RGB and RGBA
-files with any of the five row filters, and converts them as Pillow's
-``.convert("RGB")`` does: grey is repeated over the three channels and
-alpha is dropped. Palette, 16-bit and interlaced files raise ValueError.
-The writer writes RGB8 with filter 0 on every row.
+The reader takes non-interlaced 8-bit grey, grey + alpha, RGB and RGBA
+files and palette files of bit depth 1, 2, 4 or 8, with any of the five row
+filters, and converts them as Pillow's ``.convert("RGB")`` does: grey is
+repeated over the three channels, alpha (and a palette's ``tRNS``) is
+dropped, and a palette index past the ``PLTE`` entries is black. 16-bit,
+sub-byte grey and interlaced files raise ValueError. The writer writes RGB8
+with filter 0 on every row.
 """
 
 from __future__ import annotations
@@ -77,30 +79,53 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
     return out[skew].astype(np.uint8)
 
 
+def _palette_rgb(raw: bytes, h: int, w: int, depth: int,
+                 palette: bytes) -> np.ndarray:
+    """Filtered palette scanlines -> uint8 [h, w, 3]. Rows of sub-byte
+    indices are filtered bytewise (a left neighbour one byte back), each
+    byte holding 8 / depth indices, the first in its top bits."""
+    stride = (w * depth + 7) // 8
+    rows = _unfilter(raw, h, stride, 1)[..., 0]
+    if depth < 8:
+        bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)
+        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+        rows = (bits * weights).sum(axis=2, dtype=np.uint8)
+    n = min(len(palette) // 3, 256)
+    table = np.zeros((256, 3), np.uint8)
+    table[:n] = np.frombuffer(palette, np.uint8, 3 * n).reshape(n, 3)
+    return table[rows[:, :w]]
+
+
 def read_png(path: str) -> np.ndarray:
-    """An 8-bit PNG file -> uint8 [H, W, 3] RGB (grey repeated, alpha
-    dropped)."""
+    """A PNG file -> uint8 [H, W, 3] RGB (grey repeated, alpha dropped,
+    palette indices looked up)."""
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
-    header, idat = None, []
+    header, idat, palette = None, [], None
     for kind, body in _chunks(data):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind == b"PLTE":
+            palette = body
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, colour, _, _, interlace = header
-    if colour == 3:
-        raise ValueError(f"{path}: palette PNG files are not supported")
-    if depth != 8 or colour not in CHANNELS:
-        raise ValueError(f"{path}: only 8-bit grey, grey+alpha, RGB and RGBA "
-                         f"PNG files are supported (bit depth {depth}, "
-                         f"colour type {colour})")
     if interlace:
         raise ValueError(f"{path}: interlaced PNG files are not supported")
+    if colour == 3:
+        if depth not in (1, 2, 4, 8) or palette is None:
+            raise ValueError(f"{path}: palette PNG of bit depth {depth}"
+                             + ("" if palette else " without PLTE"))
+        return _palette_rgb(zlib.decompress(b"".join(idat)), h, w, depth,
+                            palette)
+    if depth != 8 or colour not in CHANNELS:
+        raise ValueError(f"{path}: only 8-bit grey, grey+alpha, RGB, RGBA "
+                         f"and palette PNG files are supported (bit depth "
+                         f"{depth}, colour type {colour})")
     ch = CHANNELS[colour]
     px = _unfilter(zlib.decompress(b"".join(idat)), h, w, ch)
     if ch <= 2:  # grey (+ alpha)

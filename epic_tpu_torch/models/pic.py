@@ -10,11 +10,14 @@ quality. Residual elements are transmitted in the order of their predicted
 std; untransmitted ones decode to the predicted mean.
 
 Delta coding of the residual and the total-mean support of the progressive
-chain (``delta_encode`` / ``total_mu_rep`` in the JAX package) are always on,
-as in every configuration the JAX package ships. The transforms and the
-hyperprior are two branches each (``multiple_encoder`` / ``_decoder`` /
-``_hyperprior``, default True: ``g_a_0`` / ``g_a_1`` ...) or one
-(``g_a``, ``g_s``, ``h_mean_s``, ``h_scale_s``; the single ``g_a`` and
+chain (``delta_encode`` / ``total_mu_rep`` in the JAX package), the
+``all_scalable`` chain and the "point-based-std" mask policy are always on,
+as in every configuration the JAX package ships: the constructor takes
+those four fields, so that a config of the JAX trainer's
+``model_config_from_args`` builds, and refuses any other value. The
+transforms and the hyperprior are two branches each (``multiple_encoder`` /
+``_decoder`` / ``_hyperprior``, default True: ``g_a_0`` / ``g_a_1`` ...) or
+one (``g_a``, ``g_s``, ``h_mean_s``, ``h_scale_s``; the single ``g_a`` and
 hyper-synthesis output all M channels). With ``division[0] ==
 division[1]`` (WACNN) there is no progressive stage and no progressive
 heads.
@@ -57,8 +60,17 @@ class VarianceMaskingPIC(nn.Module):
                  param_net_widths: Sequence[int] = (224, 176, 128, 64),
                  compute_dtype: str = "float32", scale_bound: float = 0.11,
                  multiple_encoder: bool = True, multiple_decoder: bool = True,
-                 multiple_hyperprior: bool = True):
+                 multiple_hyperprior: bool = True, delta_encode: bool = True,
+                 total_mu_rep: bool = True, all_scalable: bool = True,
+                 mask_policy: str = "point-based-std"):
         super().__init__()
+        if not (delta_encode and total_mu_rep and all_scalable
+                and mask_policy == "point-based-std"):
+            raise NotImplementedError(
+                "epic_tpu_torch implements delta_encode, total_mu_rep and "
+                "all_scalable on with the 'point-based-std' mask policy; got "
+                f"delta_encode={delta_encode}, total_mu_rep={total_mu_rep}, "
+                f"all_scalable={all_scalable}, mask_policy={mask_policy!r}")
         self.n, self.m = n, m
         self.division = tuple(division)
         self.dim_chunk = dim_chunk

@@ -138,9 +138,15 @@ def test_png_writer_round_trip_and_refusals(tmp_path):
     with Image.open(tmp_path / "w.png") as im:
         assert im.mode == "RGB"
         np.testing.assert_array_equal(np.asarray(im), px)
+    # palette files are read as Pillow's convert("RGB") gives them;
+    # 1-bit grey (like 16-bit below) is refused
     Image.fromarray(px).convert("P").save(tmp_path / "p.png")
-    with pytest.raises(ValueError, match="palette"):
-        read_png(str(tmp_path / "p.png"))
+    with Image.open(tmp_path / "p.png") as im:
+        np.testing.assert_array_equal(read_png(str(tmp_path / "p.png")),
+                                      np.asarray(im.convert("RGB")))
+    Image.fromarray(px[..., 0] > 128).save(tmp_path / "b1.png")
+    with pytest.raises(ValueError, match="bit depth 1"):
+        read_png(str(tmp_path / "b1.png"))
     Image.fromarray((px[..., 0].astype(np.uint16) * 257)).save(
         tmp_path / "g16.png")
     with pytest.raises(ValueError, match="bit depth 16"):

@@ -110,9 +110,11 @@ def test_legacy_layout_and_missing_banks_raise(tmp_path):
     """``artifacts/ckpt_r2`` (a ``rem`` model in the per-slice layout)
     loads: every array consumed, and the port's stacked weights equal the
     JAX package's ``stack_legacy_param_nets`` output leaf for leaf. A
-    ``rem`` config without REM banks loads as ``pic`` by default and
-    raises with ``disable_rems_if_missing=False``; ``which="best"`` reads
-    ``best.npz``."""
+    ``rem`` config without REM banks loads as ``pic`` by default; with
+    ``disable_rems_if_missing=False`` it loads as the JAX package's loader
+    lets its trainer build it (C-8): the ``rem`` model, every checkpoint
+    array as written and the banks of a fresh ``init_weights(0)``.
+    ``which="best"`` reads ``best.npz``."""
     legacy = os.path.join(ROOT, "artifacts", "ckpt_r2")
     model, config, step = load_checkpoint(legacy)
     _, jparams, jconfig, jstep = j_load(legacy)
@@ -136,9 +138,20 @@ def test_legacy_layout_and_missing_banks_raise(tmp_path):
                    param_net_widths=list(TINY["param_net_widths"]),
                    check_levels=[0.25, 0.75])
     _write_ckpt(tmp_path / "no_banks", rem_cfg, params)
-    with pytest.raises(ValueError, match="without REM banks"):
-        load_checkpoint(str(tmp_path / "no_banks"),
-                        disable_rems_if_missing=False)
+    model, config, step = load_checkpoint(str(tmp_path / "no_banks"),
+                                          disable_rems_if_missing=False)
+    assert type(model) is VarianceMaskingPICREM and config["model"] == "rem"
+    assert config["check_levels"] == [0.25, 0.75] and step == 3
+    back = dict(_flatten(to_jax_params(model)))
+    flat = list(_flatten(params))
+    for path, a in flat:
+        np.testing.assert_array_equal(back[path], a, err_msg="/".join(path))
+    fresh = get_model("rem", **dict(TINY, check_levels=(0.25, 0.75))) \
+        .init_weights(0).state_dict()
+    got = model.state_dict()
+    banks = [k for k in got if k.startswith("post_latent_")]
+    assert len(banks) == len(got) - len(flat) > 0
+    assert all(torch.equal(got[k], fresh[k]) for k in banks)
     model, config, step = load_checkpoint(str(tmp_path / "no_banks"))
     assert type(model) is VarianceMaskingPIC and config["model"] == "pic"
     assert "check_levels" not in config and step == 3
