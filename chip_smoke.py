@@ -122,15 +122,45 @@ Phases, one progress line each (flush=True):
     checkpoint: every array the bf16 cast of the float32 one's, the dead
     rows zero, its bytes beside the committed flagship's, and a
     progressive encode / decode of levels 0..15 with it bitwise between
-    encoder and decoder. The phase must finish within 300 s.
+    encoder and decoder. The phase must finish within 300 s;
+16. the non-default PIC options on the flagship ``rem`` model with
+    ``all_scalable=False`` (bf16, random weights from seed 0), the 768x512
+    image at batch 1: ``compress`` / ``decompress`` through the
+    interleaved codec at 0.5 / 0.75 / 5 / 10 with the REM checkpoint chain
+    (0.25's latent from ``extract_checkpoint``, 0.75's from the compress
+    at 0.75, bitwise a separate ``extract_checkpoint``): the decoder's
+    y_hat and x_hat bitwise the encoder's; the seconds of each call and of
+    the decoder's 10 per-slice round trips; ``progressive_encode``
+    refused. One bitwise round trip at 0.5 each with ``delta_encode`` off,
+    ``total_mu_rep`` off and the "two-levels" policy (the same weights).
+    Then ``cli.train.main --no_all_scalable`` at the JAX CLI's defaults on
+    phase 15's PNG files: first_train 1 epoch of 3 steps, then ``--model
+    rem`` from its checkpoint, 1 epoch of 2 steps; launches per step equal
+    phase 15's, and per run; steps/s, peak memory. Within 200 s;
+17. the data-parallel layer: ``make_parallel_train_step`` over NCCL, one
+    rank per card (``torch.cuda.device_count()``), each rank a process of
+    this script (``--parallel-rank``): first_train at flagship width,
+    float32, a global batch of 16 at 256^2, ``training=False``, 3 steps;
+    with one rank its losses and parameters bitwise the single-process
+    ``TrainStep``'s on the same batch (in this process), with more the
+    losses within 1e-5 relative and the ranks' parameters bitwise equal;
+    steps/s and peak memory. Then ``tools.multihost_rd_sweep`` with the
+    flagship ``pic`` on 4 synthetic 768x512 images: 2 processes sharing
+    the card (rows gathered over gloo) against 1 process, rows bitwise.
+
+``python3 chip_smoke.py --phases 16,17`` runs the environment, the build
+and the listed phases only (and prints no kernels record).
 
 Each path's kernel launches are counted from zero and must match its count
 (GDN 6 per encode or ``compress``; IGDN 3 per decoded level, 48 for
 levels 0..15, 9 per ``decode_all``, 3 per ``decompress``; 15 per pipelined
 sweep of 4 images; WACNN 3 GDN per ``compress`` and 3 IGDN per
 ``decompress``; the training launches in phases 9, 11, 14 and 15; the file
-CLI and RD evaluation in phases 12-13; no inference path launches the
-backward kernel). Any failure raises and exits non-zero. The line before
+CLI and RD evaluation in phases 12-13; phase 16's interleaved codec as the
+all_scalable one (6 GDN per ``compress``, 3 IGDN per ``decompress``) and
+its ``cli.train`` steps as phase 15's; phase 17's steps, each rank's
+counted in its process, and the sweep's 6 GDN + 9 IGDN per image; no
+inference path launches the backward kernel). Any failure raises and exits non-zero. The line before
 the last is the kernels' JSON record; the last line is the device record.
 Needs one CUDA device and no network; writes only into the package's
 build directories and a temporary directory it removes.
@@ -1571,13 +1601,14 @@ def _host_trainer_data(root: str):
     return os.path.join(root, "trainset"), dirs["kodak"]
 
 
-def _host_expected(stage: str):
-    """(forward, backward) launches of one phase-15 run: its steps, a rems
-    step's checkpoint latent, the validations, and the evaluation at the
-    last epoch (rems: two checkpoint latents per image first)."""
+def _host_expected(stage: str, runs: dict = HOST_RUNS):
+    """(forward, backward) launches of one ``cli.train`` run of phase 15
+    (or of ``runs``): its steps, a rems step's checkpoint latent, the
+    validations, and the evaluation at the last epoch (rems: two
+    checkpoint latents per image first)."""
     from epic_tpu_torch.training.stages import make_stage
 
-    r = HOST_RUNS[stage]
+    r = runs[stage]
     n, rems = r["epochs"] * r["steps"], stage == "rems"
     if rems and min(make_stage("rems", check_levels=(0.25, 0.75),
                                check_levels_np=(24, 24)).list_quality) \
@@ -1771,13 +1802,468 @@ def phase_host_trainer(smi: str, work: str):
     return total_f, total_b
 
 
-def main() -> int:
+# phase 16: the non-default PIC options at flagship width
+OPT_QUALITIES = (0.5, 0.75, 5.0, 10.0)
+OPT_RUNS = {"first_train": {"epochs": 1, "steps": 3},
+            "rems": {"epochs": 1, "steps": 2}}
+
+
+def _cli_counted(tag: str, argv, stage: str, runs: dict, smi: str):
+    """``cli.train.main(argv)`` in this process, launches counted per
+    step (each equal to a ``train_device`` step's) and over the run
+    (``_host_expected``). Returns (report, forward, backward launches)."""
+    from epic_tpu_torch.cli import train as cli_train
+    from epic_tpu_torch.ops.gdn_kernel import gdn, gdn_backward
+    from epic_tpu_torch.training import step as step_mod
+
+    per_step = []
+    step_call = step_mod.TrainStep.__call__
+
+    def counted_step(self, *args, **kwargs):
+        f0, b0 = dict(gdn.launches), dict(gdn_backward.launches)
+        t = time.perf_counter()
+        out = step_call(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        per_step.append(({k: gdn.launches[k] - f0[k] for k in f0},
+                         {k: gdn_backward.launches[k] - b0[k] for k in b0},
+                         time.perf_counter() - t))
+        return out
+
+    step_mod.TrainStep.__call__ = counted_step
+    try:
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rep, fwd, bwd = _counted(lambda: cli_train.main(argv), True)
+        wall = time.perf_counter() - t
+    finally:
+        step_mod.TrainStep.__call__ = step_call
+    for line in buf.getvalue().splitlines():
+        log(f"[{tag}] cli.train {stage}: {line}")
+    want = (STEP_LAUNCHES[stage], STEP_BACKWARD[stage])
+    r = runs[stage]
+    if len(per_step) != r["epochs"] * r["steps"] or any(
+            s[:2] != want for s in per_step):
+        raise AssertionError(f"{stage}: launches per step {per_step} (want "
+                             f"{want} each, as phase 15's)")
+    want_f, want_b = _host_expected(stage, runs)
+    _expect(tag, f"cli.train {stage} forward", fwd, want_f)
+    _expect(tag, f"cli.train {stage} backward", bwd, want_b)
+    if not (math.isfinite(rep["train_loss"])
+            and math.isfinite(rep["val"]["loss"])
+            and all(map(math.isfinite, rep["real"]["bpp"]
+                        + rep["real"]["psnr"]))):
+        raise AssertionError(f"{stage}: train loss {rep['train_loss']}, "
+                             f"val {rep['val']}, real {rep['real']}")
+    walls = [s[2] for s in per_step]
+    tm = rep["timers"]
+    log(f"[{tag}] {stage}: {rep['steps']} steps in {wall:.1f} s, each "
+        f"launching forward {want[0]}, backward {want[1]} (phase 15's); "
+        f"{rep['steps_per_s']:.3f} steps/s (first included; warm "
+        f"{(len(walls) - 1) / sum(walls[1:]):.3f}), peak memory "
+        f"{rep['peak_mem_bytes'] / 2**30:.2f} GiB; validation "
+        f"{tm['valid']['total_s']:.2f} s, evaluation "
+        f"{tm['eval']['total_s']:.2f} s, save {tm['save']['total_s']:.2f} s;"
+        f" train loss {rep['train_loss']:.4f}, val loss "
+        f"{rep['val']['loss']:.4f} [{smi}]")
+    return rep, fwd, bwd
+
+
+def phase_options(smi: str, work: str):
+    """The options of ``all_scalable=False`` and the three others on the
+    flagship ``rem`` model (bf16, random weights from seed 0) on the
+    768x512 image at batch 1: (a) ``compress`` / ``decompress`` at
+    OPT_QUALITIES through the interleaved codec, the REM checkpoint chain
+    where the quality is above a check level (0.25's latent from
+    ``extract_checkpoint``, 0.75's from the compress at 0.75), the
+    decoder's y_hat and x_hat bitwise the encoder's, 6 GDN per compress,
+    3 IGDN per decompress; ``progressive_encode`` refused; (b) one bitwise
+    round trip at 0.5 with ``delta_encode``, ``total_mu_rep`` off and with
+    the "two-levels" policy (the same weights: the options change no
+    shape); (c) ``cli.train.main --no_all_scalable`` at the JAX CLI's
+    defaults (float32, batch 16, patch 256) on phase 15's PNG files:
+    first_train 1 epoch of 3 steps, then ``--model rem`` from it, 1 epoch
+    of 2 steps. Returns (forward, backward) launches. Within 200 s."""
+    import epic_tpu_torch as et
+    from epic_tpu_torch.tools.workload import FLAGSHIP, images
+
+    tag = "16 options"
+    t_phase = time.perf_counter()
+    model = et.get_model("rem", **dict(FLAGSHIP, all_scalable=False))
+    codec = et.PICCodec(model.init_weights(0), device="cuda")
+    x, warm = images()
+    log(f"[{tag}] flagship rem, all_scalable=False, set up in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    total_f, total_b = dict(ZERO), dict(ZERO)
+
+    def counted(what, fn, expect):
+        t = time.perf_counter()
+        out, n = _counted(fn)
+        secs = time.perf_counter() - t
+        _expect(tag, what, n, expect)
+        _add(total_f, n)
+        return out, secs
+
+    def round_trip(q, rep, label=""):
+        enc, enc_s = counted(f"{label}compress q={q}", lambda: codec.compress(
+            x, q, return_latents=True, checkpoint_rep=rep),
+            {"gdn": 6, "igdn": 0})
+        timing = {}
+        dec, dec_s = counted(f"{label}decompress q={q}",
+                             lambda: codec.decompress(
+                                 enc, checkpoint_rep=rep, timing=timing),
+                             {"gdn": 0, "igdn": 3})
+        with torch.no_grad():
+            x_enc, _ = counted(f"{label}encoder x_hat q={q}",
+                               lambda: torch.clamp(model.synthesize_prog(
+                                   enc["y_hat"]), 0.0, 1.0),
+                               {"gdn": 0, "igdn": 3})
+        if not (torch.equal(dec["y_hat"], enc["y_hat"])
+                and torch.equal(dec["x_hat"], x_enc)):
+            raise AssertionError(f"{label}q={q}: the decoder's y_hat / x_hat"
+                                 " differ from the encoder's")
+        trips = timing.get("slice_round_trip_s", [])
+        nbytes = sum(len(m) for sl in enc["strings"][0] for m in sl) + sum(
+            len(m) for m in enc["strings"][1])
+        log(f"[{tag}] {label}q={q}: compress {enc_s:.3f} s, decompress "
+            f"{dec_s:.3f} s" + (f" ({len(trips)} slice round trips "
+                                f"{sum(trips):.3f} s: "
+                                + " ".join(f"{s:.4f}" for s in trips) + ")"
+                                if trips else "")
+            + f", {nbytes * 8 / x[0, ..., 0].size:.4f} bpp; y_hat and x_hat"
+            " bitwise the encoder's")
+        return enc
+
+    round_trip(0.5, None, "warm-up ")  # cuDNN / cuBLAS handles
+    c0, c0_s = counted("extract_checkpoint 0.25", lambda:
+                       codec.extract_checkpoint(x, 0.25),
+                       {"gdn": 6, "igdn": 0})
+    ckpts = {0.25: c0}
+    for q in OPT_QUALITIES:
+        rep = ckpts[max(c for c in ckpts if c < q)]
+        enc = round_trip(q, rep)
+        if q == 0.75:
+            ckpts[0.75] = enc["y_hat"]
+            again, _ = counted("extract_checkpoint 0.75", lambda:
+                               codec.extract_checkpoint(x, 0.75, c0),
+                               {"gdn": 6, "igdn": 0})
+            if not torch.equal(again, enc["y_hat"]):
+                raise AssertionError("extract_checkpoint at 0.75 differs "
+                                     "from the compress's latent")
+    try:
+        et.progressive_encode(codec, x)
+    except ValueError as e:
+        log(f"[{tag}] progressive_encode refused: {e}")
+    else:
+        raise AssertionError("progressive_encode took an all_scalable=False "
+                             "model")
+    model.all_scalable = True
+    for attr, value in (("delta_encode", False), ("total_mu_rep", False),
+                        ("mask_policy", "two-levels")):
+        default = getattr(model, attr)
+        setattr(model, attr, value)
+        round_trip(0.5, c0, f"{attr}={value} ")
+        setattr(model, attr, default)
+    del codec, model
+    torch.cuda.empty_cache()
+
+    root = os.path.join(work, "host")
+    if not os.path.isdir(os.path.join(root, "trainset")):
+        _host_trainer_data(root)
+    save = os.path.join(work, "options")
+    common = ["--training_dataset", os.path.join(root, "trainset"),
+              "--test_dataset", os.path.join(root, "kodak"), "--save_path",
+              save, "--valid_batch_size", str(HOST_VALID_BATCH),
+              "--no_all_scalable", "--epochs", "1"]
+    argv = {"first_train": ["--steps_per_epoch", "3"],
+            "rems": ["--steps_per_epoch", "2", "--model", "rem",
+                     "--checkpoint", os.path.join(save, "first_train"),
+                     "--check_levels", "0.25", "0.75", "--check_levels_np",
+                     "24", "24", "--dimension", "middle"]}
+    for stage in OPT_RUNS:
+        _, fwd, bwd = _cli_counted(tag, common + argv[stage] + [
+            "--training_type", stage], stage, OPT_RUNS, smi)
+        _add(total_f, fwd)
+        _add(total_b, bwd)
+        loaded = et.load_checkpoint(os.path.join(save, stage))[0]
+        if loaded.all_scalable:
+            raise AssertionError(f"{stage}: the checkpoint lost "
+                                 "all_scalable=False")
+        del loaded
+    secs = time.perf_counter() - t_phase
+    log(f"[{tag}] phase {secs:.1f} s")
+    if secs > 200:
+        raise AssertionError(f"phase 16 took {secs:.1f} s (limit 200 s)")
+    return total_f, total_b
+
+
+# phase 17: the data-parallel layer. The NCCL train step at flagship width,
+# float32 (as cli.train builds it), first_train, on one global batch; then
+# the multi-process RD sweep with the flagship pic on 4 768x512 images.
+PAR_BATCH, PAR_PATCH, PAR_STEPS, PAR_LOSS_RTOL = 16, 256, 3, 1e-5
+SWEEP_IMAGES = 4
+
+
+def _par_model():
+    import epic_tpu_torch as et
+    from epic_tpu_torch.tools.workload import PIC
+
+    return et.get_model("pic", **dict(PIC, compute_dtype="float32")) \
+        .init_weights(0)
+
+
+def _par_batch() -> np.ndarray:
+    return np.random.default_rng(17).random(
+        (PAR_BATCH, PAR_PATCH, PAR_PATCH, 3), dtype=np.float32)
+
+
+def _params_digest(model) -> str:
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def parallel_rank(rank: int, world: int, port: int, out: str) -> None:
+    """One NCCL rank of phase 17 (``chip_smoke.py --parallel-rank``): its
+    rows of the global batch through ``make_parallel_train_step``
+    (``training=False``), PAR_STEPS steps; writes the losses, the step
+    walls, the kernels' launches over the steps, the parameters' SHA-256
+    and the peak memory to ``out``."""
+    from epic_tpu_torch.ops.gdn_kernel import gdn, gdn_backward
+    from epic_tpu_torch.parallel import (init_multihost, make_mesh,
+                                         make_parallel_train_step, replicate,
+                                         shard_batch)
+    from epic_tpu_torch.training.stages import make_stage
+    from epic_tpu_torch.training.state import TrainState
+
+    init_multihost(f"localhost:{port}", world, rank, "nccl")
+    mesh = make_mesh()
+    model = _par_model().to(mesh.device)
+    state = replicate(TrainState(model), mesh)
+    step = make_parallel_train_step(model, make_stage("first_train"), mesh,
+                                    training=False)
+    x = shard_batch(_par_batch(), mesh)
+    gdn.launches.update(ZERO)
+    gdn_backward.launches.update(ZERO)
+    losses, walls = _timed_steps(step, state, x)
+    res = {"rank": rank, "world": world, "losses": losses, "walls": walls,
+           "launches": dict(gdn.launches),
+           "backward": dict(gdn_backward.launches),
+           "digest": _params_digest(model),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(mesh.device)}
+    torch.distributed.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _run_procs(tag: str, cmds, work: str, timeout: float = 300):
+    """Start the commands together (from the repository's root, output to
+    files under ``work``, so that no process blocks on a full pipe) and
+    wait for all, killing what is left after ``timeout`` seconds; any
+    failure raises with its output. Returns their outputs."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    logs = [os.path.join(work, f"proc{i}.log") for i in range(len(cmds))]
+    procs = [subprocess.Popen(c, cwd=root, env=env, stdout=open(lg, "w"),
+                              stderr=subprocess.STDOUT)
+             for c, lg in zip(cmds, logs)]
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = [open(lg).read() for lg in logs]
+    for p, o in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"[{tag}] a process exited with "
+                                 f"{p.returncode}:\n{o[-4000:]}")
+    return outs
+
+
+def phase_parallel(smi: str, work: str, sweep_too: bool = True):
+    """(a) ``make_parallel_train_step`` over NCCL, one rank per card
+    (``torch.cuda.device_count()``), each a process of its own: first_train
+    at flagship width, float32, a global batch of 16 at 256^2,
+    ``training=False``, PAR_STEPS steps; against the single-process
+    ``TrainStep`` on the same batch in this process: with one rank, the
+    losses and the parameters bitwise; with more, the losses within
+    PAR_LOSS_RTOL relative and every rank's parameters bitwise each
+    other's. (b) ``tools.multihost_rd_sweep`` with the flagship ``pic``
+    (bf16) on 4 synthetic 768x512 images: 2 processes sharing the card
+    (their rows gathered over gloo) against 1 process (in this process,
+    its launches counted): rows bitwise; skipped without ``sweep_too``.
+    Returns the launches of its paths: (forward, backward) by path."""
+    from epic_tpu_torch.device import resolve_device
+    from epic_tpu_torch.tools import multihost_rd_sweep as sweep
+    from epic_tpu_torch.training.stages import make_stage
+    from epic_tpu_torch.training.state import TrainState
+    from epic_tpu_torch.training.step import TrainStep
+
+    tag = "17 parallel"
+    world = torch.cuda.device_count()
+    port = _free_port()
+    outs = [os.path.join(work, f"rank{r}.json") for r in range(world)]
+    t = time.perf_counter()
+    _run_procs(tag, [[sys.executable, os.path.abspath(__file__),
+                      "--parallel-rank", str(r), str(world), str(port),
+                      outs[r]] for r in range(world)], work)
+    ranks_s = time.perf_counter() - t
+    ranks = [json.load(open(o)) for o in outs]
+    steps_f = {k: PAR_STEPS * v for k, v in STEP_LAUNCHES["first_train"]
+               .items()}
+    steps_b = {k: PAR_STEPS * v for k, v in STEP_BACKWARD["first_train"]
+               .items()}
+    # the single-process TrainStep on the global batch, on card 0, with
+    # the entry points' settings (TF32 off, deterministic cuDNN)
+    t = time.perf_counter()
+    dev = resolve_device()
+    model = _par_model().to(dev)
+    state = TrainState(model)
+    step = TrainStep(model, make_stage("first_train"), training=False)
+    x = torch.from_numpy(_par_batch()).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    (losses, walls), fwd, bwd = _counted(lambda: _timed_steps(step, state,
+                                                              x), True)
+    single_s = time.perf_counter() - t
+    _expect(tag, "TrainStep forward", fwd, steps_f)
+    _expect(tag, "TrainStep backward", bwd, steps_b)
+    digest = _params_digest(model)
+    peak = torch.cuda.max_memory_allocated()
+    del model, state, step, x
+    torch.cuda.empty_cache()
+    par_f, par_b = dict(ZERO), dict(ZERO)
+    rel = 0.0
+    for r in ranks:
+        _expect(tag, f"rank {r['rank']} forward", r["launches"], steps_f)
+        _expect(tag, f"rank {r['rank']} backward", r["backward"], steps_b)
+        _add(par_f, r["launches"])
+        _add(par_b, r["backward"])
+        if r["digest"] != ranks[0]["digest"]:
+            raise AssertionError("the ranks' parameters differ")
+        worst = max(abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                       losses))
+        rel = max(rel, worst)
+        if world == 1 and (r["losses"] != losses or r["digest"] != digest):
+            raise AssertionError(f"1-rank NCCL step {r['losses']} / "
+                                 f"{r['digest'][:12]} differs from "
+                                 f"TrainStep's {losses} / {digest[:12]}")
+        if worst > PAR_LOSS_RTOL:
+            raise AssertionError(f"rank {r['rank']} losses {r['losses']} "
+                                 f"against TrainStep's {losses}")
+    warm = [sum(r["walls"][1:]) for r in ranks]
+    log(f"[{tag}] {world} NCCL rank(s), {PAR_BATCH // world} rows each of "
+        f"{PAR_PATCH}^2, first_train float32, training=False: losses "
+        + " ".join(f"{v:.7f}" for v in ranks[0]["losses"])
+        + "; TrainStep on the global batch " + " ".join(
+            f"{v:.7f}" for v in losses)
+        + (" (bitwise, parameters bitwise)" if world == 1 else
+           f" (max rel diff {rel:.2e}; the ranks' parameters bitwise "
+           "equal)")
+        + f"; steps/s warm {(PAR_STEPS - 1) / max(warm):.3f} ({world} "
+        f"rank(s); step walls rank 0 "
+        + " ".join(f"{v:.4f}" for v in ranks[0]["walls"])
+        + f"), TrainStep warm {(PAR_STEPS - 1) / sum(walls[1:]):.3f} "
+        "steps/s (walls " + " ".join(f"{v:.4f}" for v in walls)
+        + "); peak memory per rank "
+        + " ".join(f"{r['peak_mem_bytes'] / 2**30:.2f}" for r in ranks)
+        + f" GiB, TrainStep {peak / 2**30:.2f} GiB; ranks' processes "
+        f"{ranks_s:.1f} s, TrainStep {single_s:.1f} s [{smi}]")
+
+    launches = ({"parallel_train_step": par_f, "train_step_reference": fwd},
+                {"parallel_train_step": par_b, "train_step_reference": bwd})
+    if not sweep_too:
+        return launches
+    argv = ["--n_images", str(SWEEP_IMAGES), "--height", "512", "--width",
+            "768"]
+    port = _free_port()
+    code = ("import sys; from epic_tpu_torch.tools.multihost_rd_sweep "
+            "import main; from epic_tpu_torch.tools.workload import PIC; "
+            "main(sys.argv[1:], PIC)")
+    t = time.perf_counter()
+    two = _run_procs(tag, [[sys.executable, "-c", code] + argv + [
+        "--num_processes", "2", "--process_id", str(r), "--coordinator",
+        f"localhost:{port}"] for r in range(2)], work)
+    two_s = time.perf_counter() - t
+    line = [ln for ln in two[0].splitlines() if ln.startswith("RDSWEEP ")]
+    pair = json.loads(line[0][len("RDSWEEP "):])
+    from epic_tpu_torch.tools.workload import PIC
+
+    t = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        single, n_sweep = _counted(lambda: sweep.main(argv, PIC))
+    one_s = time.perf_counter() - t
+    # per image: the encode (g_a_0, g_a_1) and decode_all (9 IGDN)
+    _expect(tag, "multihost_rd_sweep, 1 process", n_sweep,
+            {"gdn": 6 * SWEEP_IMAGES, "igdn": 9 * SWEEP_IMAGES})
+    if pair["rows"] != single["rows"] or pair["processes"] != 2:
+        raise AssertionError(f"2-process rows {pair['rows']} differ from "
+                             f"1 process's {single['rows']}")
+    log(f"[{tag}] multihost_rd_sweep, flagship pic on {SWEEP_IMAGES} "
+        f"768x512 images: 2 processes sharing the card {two_s:.1f} s "
+        f"(coding {pair['code_s']:.2f} s of rank 0's {pair['total_s']:.1f} "
+        f"s), 1 process {one_s:.1f} s (coding {single['code_s']:.2f} s); "
+        "rows bitwise equal; top-level bpp / PSNR per image "
+        + ", ".join(f"{r[len(sweep.Q_LIST) + 1]:.4f} / {r[-1]:.3f}"
+                    for r in single["rows"]) + f" [{smi}]")
+    launches[0]["multihost_rd_sweep"] = n_sweep
+    return launches
+
+
+def _timed_steps(step, state, x):
+    losses, walls = [], []
+    for _ in range(PAR_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(float(step(state, x)["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    return losses, walls
+
+
+def main(argv=None) -> int:
+    """All phases (no arguments: what the chip check runs). ``--phases
+    16,17`` runs the environment, the build and the listed phases only
+    ("17a": phase 17's train step without the sweep), and prints no
+    kernels record (for working on those phases);
+    ``--parallel-rank R WORLD PORT OUT`` is one rank of phase 17."""
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if argv[:1] == ["--parallel-rank"]:
+        rank, world, port, out = argv[1:5]
+        parallel_rank(int(rank), int(world), int(port), out)
+        return 0
+    only = None
+    if argv[:1] == ["--phases"]:
+        only = set(argv[1].split(","))
     t_start = time.perf_counter()
     smi = phase_environment()
+    if only is not None:
+        phase_build()
+        with tempfile.TemporaryDirectory() as work:
+            if "16" in only:
+                phase_options(smi, work)
+            if only & {"17", "17a"}:
+                phase_parallel(smi, work, sweep_too="17" in only)
+        log(f"[done] phases {sorted(only)} in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     phase_z_tables()
     phase_build()
     per_shape = phase_kernels(smi)
@@ -1800,9 +2286,15 @@ def main() -> int:
     launches["first_train_vs_jax"] = c2_fwd
     with tempfile.TemporaryDirectory() as work:
         host_fwd, host_bwd = phase_host_trainer(smi, work)
+        # phase 16 trains on phase 15's PNG files
+        opt_fwd, opt_bwd = phase_options(smi, work)
+        par_fwd, par_bwd = phase_parallel(smi, work)
     launches["host_trainer"] = host_fwd
+    launches["options"] = opt_fwd
+    launches.update(par_fwd)
     backward = {"training": train_bwd, "wacnn_training": cnn_bwd,
-                "first_train_vs_jax": c2_bwd, "host_trainer": host_bwd}
+                "first_train_vs_jax": c2_bwd, "host_trainer": host_bwd,
+                "options": opt_bwd, **par_bwd}
     kernels = []
     for name in ("gdn", "igdn"):
         top = per_shape[name][0]  # the largest call of the main path

@@ -3,13 +3,17 @@
 The encoder simulates the decoder: every entropy parameter, CDF index and
 mask is computed by the same method on both sides, on tensors of the same
 shape and dtype, so the decoder re-derives the encoder's values bit for bit
-(the variance mask is never transmitted). Only the base chain is
-interleaved with the host coder: slice i+1's parameters need slice i's
-decoded content. The progressive stage is quality-independent given the
-base latent (and, for a ``rem`` model, the checkpoint latents that its
-REMs are conditioned on), so its parameters are computed once. A
-checkpoint latent is the progressive latent at one quality, computed from
-the encoder's symbols alone (the rANS round trip is lossless).
+(the variance mask is never transmitted). The base chain is interleaved
+with the host coder: slice i+1's parameters need slice i's decoded content.
+With ``all_scalable`` (the default) the progressive stage is
+quality-independent given the base latent (and, for a ``rem`` model, the
+checkpoint latents that its REMs are conditioned on), so its parameters are
+computed once. Without it the progressive slices are interleaved as the
+base ones are, at the coded quality: the decoder makes one device-to-host
+round trip per progressive slice, the encoder none until its one symbol
+fetch. A checkpoint latent is the progressive latent at one quality,
+computed from the encoder's symbols alone (the rANS round trip is
+lossless).
 
 Symbols and CDF indexes cross to the host as packed integer arrays, one
 copy per stage; the host rANS coder runs batched calls over threads.
@@ -26,8 +30,8 @@ import torch
 from ..device import resolve_device
 from ..entropy.coder import RansCoder
 from ..entropy.gaussian import build_indexes, gaussian_coder, get_scale_table
-from ..models.pic import VarianceMaskingPIC, slices_of
-from ..ops.masking import prog_mask
+from ..models.pic import VarianceMaskingPIC
+from ..ops.masking import prog_mask, variance_mask
 
 
 class PICCodec:
@@ -156,21 +160,60 @@ class PICCodec:
             mu_s, scale_s = self.model.refine_prog_params_all(
                 quality, mu_s, scale_s, ckpt, torch.stack(list(mus_b)),
                 torch.stack(list(scales_b)))
-        mask = prog_mask(scale_s, quality)
+        mask = prog_mask(scale_s, quality, self.model.mask_policy)
         return mu_s, scale_s, mask, self.indexes(scale_s * mask), msups
 
     def prog_sym(self, y: torch.Tensor, mu_s: torch.Tensor,
                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Residual symbols [S, B, h, w, c] int32: round((y_prog - y_base -
-        mu) * mask) per slice (no mask: every element)."""
-        m = self.model
-        c, ns0, nprog = m.dim_chunk, m.ns0, m.ns1 - m.ns0
-        r = torch.stack([a - b for a, b in zip(
-            slices_of(y, ns0, ns0 + nprog, c), slices_of(y, 0, nprog, c))])
-        r = r - mu_s
+        """Residual symbols [S, B, h, w, c] int32: round((r - mu) * mask)
+        per slice, r the model's residual (y_prog - y_base with
+        ``delta_encode``, else y_prog; no mask: every element)."""
+        r = self.model.residuals(y) - mu_s
         if mask is not None:
             r = r * mask
         return torch.round(r).to(torch.int32)
+
+    # ---- progressive stage without all_scalable: one slice at a time ----
+    def ns_prog_chain(self, quality: float, base, lm, ls, symbols,
+                      ckpt=None, mus_b=None, scales_b=None):
+        """The interleaved progressive chain at one quality: slice i's
+        params are supported on the decoded progressive slices 0..i-1 and,
+        with a checkpoint latent, REM-refined (which needs the base chain's
+        ``mus_b`` / ``scales_b``); then its variance mask and masked CDF
+        indexes. ``symbols(i, mu, mask, idx)`` returns slice i's int32
+        symbols: the encoder rounds (r_i - mu) * mask, the decoder
+        rANS-decodes with idx. Returns (decoded slices, idxs, syms) as
+        lists."""
+        m = self.model
+        d0 = m.division[0]
+        out = ([], [], [])
+        for i in range(m.ns1 - m.ns0):
+            mu, _, scale, msup = m.prog_slice_params(
+                lm[..., d0:], ls[..., d0:], base[i], out[0], out[0], i)
+            if ckpt is not None:
+                mu, scale = m.refine_prog_params(i, quality, mu, scale, ckpt,
+                                                 mus_b[i], scales_b[i])
+            mask = variance_mask(scale, quality, m.mask_policy)
+            idx = self.indexes(scale * mask)
+            sym = symbols(i, mu, mask, idx)
+            y_hat = m.finish_prog_slice(sym.to(torch.float32) + mu, msup,
+                                        base[i], i)
+            for acc, t in zip(out, (y_hat, idx, sym)):
+                acc.append(t)
+        return out
+
+    def ns_encode(self, enc: Dict[str, Any], quality: float, ckpt=None):
+        """The encoder's interleaved progressive chain from its
+        ``encode_base`` output: (decoded slices, idxs, syms), all on the
+        device."""
+        r_s = self.model.residuals(enc["y"])
+
+        def symbols(i, mu, mask, idx):
+            return torch.round((r_s[i] - mu) * mask).to(torch.int32)
+
+        return self.ns_prog_chain(quality, enc["base_slices"], enc["lm"],
+                                  enc["ls"], symbols, ckpt, enc["base_mu"],
+                                  enc["base_scale"])
 
     def prog_latent(self, sym_s, mu_s, msups, base_slices) -> torch.Tensor:
         """Symbols [S,B,h,w,c] (untransmitted = 0) -> y_prog: dequantize +
@@ -221,6 +264,9 @@ class PICCodec:
         base = enc["base_slices"]
         if quality <= 0:
             return torch.cat(base, dim=-1)
+        if not self.model.all_scalable:
+            return torch.cat(self.ns_encode(enc, float(quality),
+                                            checkpoint_rep)[0], dim=-1)
         mu_s, _, mask, _, msups = self.prog_params_at(
             float(quality), base, enc["lm"], enc["ls"], checkpoint_rep,
             enc["base_mu"], enc["base_scale"])
@@ -254,7 +300,9 @@ class PICCodec:
         layout. With ``buffered`` at quality <= 0 (WACNN's coding), y_strings
         is one list of B messages, each image's every base slice in one
         stream. With ``return_latents``: the decoder's latent, "y_hat_base"
-        at quality <= 0, else "y_hat" (bitwise ``extract_checkpoint``)."""
+        at quality <= 0, else "y_hat" (bitwise ``extract_checkpoint``).
+        Without ``all_scalable`` the progressive slices are coded by the
+        interleaved chain at ``quality`` (``ns_encode``)."""
         enc = self.encode_base(self.as_input(x))
         z_np = enc["z_sym"].cpu().numpy()
         sym, idx = torch.stack(enc["base_sym"]), torch.stack(enc["base_idx"])
@@ -272,6 +320,13 @@ class PICCodec:
             return out
         ckpt = None if checkpoint_rep is None else self.as_input(
             checkpoint_rep)
+        if not self.model.all_scalable:
+            prog, idxs, syms = self.ns_encode(enc, float(quality), ckpt)
+            y_strings.extend(self._encode_slices(torch.stack(syms),
+                                                 torch.stack(idxs)))
+            if return_latents:
+                out["y_hat"] = torch.cat(prog, dim=-1)
+            return out
         mu_s, _, mask, idx, msups = self.prog_params_at(
             float(quality), enc["base_slices"], enc["lm"], enc["ls"], ckpt,
             enc["base_mu"], enc["base_scale"])
@@ -285,13 +340,18 @@ class PICCodec:
     @torch.no_grad()
     def decompress(self, bitstream: Dict[str, Any],
                    quality: Optional[float] = None,
-                   checkpoint_rep=None) -> Dict[str, Any]:
+                   checkpoint_rep=None,
+                   timing: Optional[Dict[str, Any]] = None
+                   ) -> Dict[str, Any]:
         """The mirror of ``compress`` (at the stream's quality unless
         ``quality`` is given, with the same ``checkpoint_rep``): returns
         {"x_hat", "y_hat"}, y_hat the base latent at quality <= 0, else the
         progressive one. A quality-0 decode runs the base hyper branch
         only. A buffered stream decodes slice by slice from one stream
-        decoder per image."""
+        decoder per image. Without ``all_scalable`` each progressive slice
+        is one round trip (its CDF indexes to the host, its symbols back);
+        ``timing`` then gets each round trip's seconds, the wait for the
+        indexes included, under "slice_round_trip_s"."""
         quality = float(bitstream["quality"] if quality is None
                         else quality)
         y_strings, z_strings = bitstream["strings"]
@@ -319,9 +379,25 @@ class PICCodec:
             return {"x_hat": x_hat, "y_hat": y_hat}
         ckpt = None if checkpoint_rep is None else self.as_input(
             checkpoint_rep)
+        ns0 = self.model.ns0
+        if not self.model.all_scalable:
+            trips = [] if timing is None else timing.setdefault(
+                "slice_round_trip_s", [])
+
+            def prog_symbols(i, mu, mask, idx):
+                t = time.perf_counter()
+                sym = self._decode_slice(y_strings[ns0 + i],
+                                         idx.cpu().numpy())
+                trips.append(time.perf_counter() - t)
+                return sym
+
+            prog, _, _ = self.ns_prog_chain(quality, base, lm, ls,
+                                            prog_symbols, ckpt, mus, scales)
+            y_hat = torch.cat(prog, dim=-1)
+            x_hat = torch.clamp(self.model.synthesize_prog(y_hat), 0.0, 1.0)
+            return {"x_hat": x_hat, "y_hat": y_hat}
         mu_s, _, _, idx, msups = self.prog_params_at(
             quality, base, lm, ls, ckpt, mus, scales)
-        ns0 = self.model.ns0
         sym = torch.stack([self._decode_slice(y_strings[ns0 + i], idx_i)
                            for i, idx_i in enumerate(idx.cpu().numpy())])
         x_hat, y_hat = self.prog_reconstruct(sym, mu_s, msups, base)

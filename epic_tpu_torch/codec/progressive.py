@@ -76,11 +76,16 @@ def progressive_encode_start(codec: PICCodec, x,
     Returns the state that ``progressive_encode_finish`` consumes: "x" (the
     input on the device), "q_list", "auto_ckpts", "event" (None on the
     CPU), "host" (the six host buffers) and the encoder's device tensors
-    (``STATE_KEYS``)."""
+    (``STATE_KEYS``). An ``all_scalable=False`` model raises ValueError, as
+    in the JAX package: its params change with the quality."""
     if not codec.model.progressive:
         raise ValueError("this model has no progressive stage (WACNN, "
                          "'cnn'): code it with codec.compress(x, 0, "
                          "buffered=True)")
+    if not codec.model.all_scalable:
+        # one symbol grid for every shell needs quality-independent params;
+        # code such a model per quality with codec.compress
+        raise ValueError("progressive coding requires all_scalable=True")
     q_list = list(q_list if q_list is not None else DEFAULT_Q_LIST)
     t = time.perf_counter()
     x = codec.as_input(x)

@@ -3,19 +3,27 @@
 An image is coded as a base latent (the first ``division[0]`` channels,
 ``ns0`` channel-autoregressive slices with up to ``max_support_slices`` of
 support) plus a residual latent (the delta between the enhancement and base
-representations, ``ns1 - ns0`` more slices). The progressive entropy
-parameters depend only on the decoded base latent (the paper's
-``all_scalable`` configuration), so they are computed once for every
-quality. Residual elements are transmitted in the order of their predicted
-std; untransmitted ones decode to the predicted mean.
+representations, ``ns1 - ns0`` more slices). Residual elements are
+transmitted in the order of their predicted std; untransmitted ones decode
+to the predicted mean.
 
-Delta coding of the residual and the total-mean support of the progressive
-chain (``delta_encode`` / ``total_mu_rep`` in the JAX package), the
-``all_scalable`` chain and the "point-based-std" mask policy are always on,
-as in every configuration the JAX package ships: the constructor takes
-those four fields, so that a config of the JAX trainer's
-``model_config_from_args`` builds, and refuses any other value. The
-transforms and the hyperprior are two branches each (``multiple_encoder`` /
+Four options follow the JAX package's fields, each on by default as in
+every configuration it ships:
+
+- ``all_scalable``: the progressive entropy parameters depend only on the
+  decoded base latent, so they are computed once for every quality. Off,
+  slice i's parameters are supported on the decoded progressive slices
+  0..i-1 of this quality, so the chain runs once per quality and
+  interleaves parameters and reconstruction (``prog_slices_non_scalable``);
+- ``delta_encode``: the residual is the enhancement slice minus the base
+  slice (off: the enhancement slice itself). The decoded slice adds the
+  base slice back either way, as the JAX package's does;
+- ``total_mu_rep``: the mean support of the all_scalable chain holds mu
+  plus the base slice (off: mu);
+- ``mask_policy``: "point-based-std" (the top q*10% by predicted std) or
+  "two-levels" (nothing at quality 0, everything above it).
+
+The transforms and the hyperprior are two branches each (``multiple_encoder`` /
 ``_decoder`` / ``_hyperprior``, default True: ``g_a_0`` / ``g_a_1`` ...) or
 one (``g_a``, ``g_s``, ``h_mean_s``, ``h_scale_s``; the single ``g_a`` and
 hyper-synthesis output all M channels). With ``division[0] ==
@@ -64,13 +72,6 @@ class VarianceMaskingPIC(nn.Module):
                  total_mu_rep: bool = True, all_scalable: bool = True,
                  mask_policy: str = "point-based-std"):
         super().__init__()
-        if not (delta_encode and total_mu_rep and all_scalable
-                and mask_policy == "point-based-std"):
-            raise NotImplementedError(
-                "epic_tpu_torch implements delta_encode, total_mu_rep and "
-                "all_scalable on with the 'point-based-std' mask policy; got "
-                f"delta_encode={delta_encode}, total_mu_rep={total_mu_rep}, "
-                f"all_scalable={all_scalable}, mask_policy={mask_policy!r}")
         self.n, self.m = n, m
         self.division = tuple(division)
         self.dim_chunk = dim_chunk
@@ -81,6 +82,10 @@ class VarianceMaskingPIC(nn.Module):
         self.multiple_encoder = multiple_encoder
         self.multiple_decoder = multiple_decoder
         self.multiple_hyperprior = multiple_hyperprior
+        self.delta_encode = delta_encode
+        self.total_mu_rep = total_mu_rep
+        self.all_scalable = all_scalable
+        self.mask_policy = mask_policy
         dt = None if compute_dtype == "float32" else getattr(torch,
                                                              compute_dtype)
         self.dt = dt
@@ -225,28 +230,40 @@ class VarianceMaskingPIC(nn.Module):
         return y_hat, buf
 
     # ---- progressive chain ----
+    def prog_slice_params(self, lm_e, ls_e, base_i, mu_support, std_support,
+                          i: int):
+        """Entropy params of progressive slice i from the enhancement hyper
+        outputs, base slice i and the last ``min(support, i)`` entries of
+        ``mu_support`` / ``std_support``, front-padded with zeros to the
+        ``n_slots_prog`` slots (the newest last). Returns (mu, mu_total,
+        scale, mean_support); mu_total is mu + base_i with
+        ``total_mu_rep``, else mu."""
+        sps = self.support_progressive_slices
+        k = min(sps, i) if sps > 0 else 0
+        n = self.n_slots_prog
+        front = [] if k >= n else [base_i.new_zeros(
+            base_i.shape[:-1] + ((n - k) * self.dim_chunk,))]
+        tail_mu = list(mu_support[len(mu_support) - k:]) if k else []
+        tail_std = list(std_support[len(std_support) - k:]) if k else []
+        mean_support = torch.cat([lm_e, base_i] + front + tail_mu, dim=-1)
+        scale_support = torch.cat([ls_e, base_i] + front + tail_std, dim=-1)
+        mu = self.cc_mean_prog(mean_support, i)
+        mut = mu + base_i if self.total_mu_rep else mu
+        return mu, mut, self.cc_scale_prog(scale_support, i), mean_support
+
     def prog_param_chain(self, base_slices: Sequence[torch.Tensor],
                          lm_e: torch.Tensor, ls_e: torch.Tensor):
-        """Quality-independent progressive entropy params. Support = the
-        base slice i plus the last ``n_slots_prog`` (mu_total, scale)
-        tensors, front-padded with zeros. Returns stacked
-        (mus, scales, mean_supports), each [S, ...]."""
-        n = self.n_slots_prog
-        mut_buf = [torch.zeros_like(base_slices[0])] * n
-        std_buf = [torch.zeros_like(base_slices[0])] * n
-        mus, scales, msups = [], [], []
+        """Quality-independent progressive entropy params (the all_scalable
+        chain): slice i is supported on the earlier slices' (mu_total,
+        scale). Returns stacked (mus, scales, mean_supports), each
+        [S, ...]."""
+        mus, muts, scales, msups = [], [], [], []
         for i in range(self.ns1 - self.ns0):
-            base_i = base_slices[i]
-            mean_support = torch.cat([lm_e, base_i] + mut_buf, dim=-1)
-            scale_support = torch.cat([ls_e, base_i] + std_buf, dim=-1)
-            mu = self.cc_mean_prog(mean_support, i)
-            scale = self.cc_scale_prog(scale_support, i)
-            if n > 0:
-                mut_buf = mut_buf[1:] + [mu + base_i]
-                std_buf = std_buf[1:] + [scale]
-            mus.append(mu)
-            scales.append(scale)
-            msups.append(mean_support)
+            mu, mut, scale, msup = self.prog_slice_params(
+                lm_e, ls_e, base_slices[i], muts, scales, i)
+            for acc, t in zip((mus, muts, scales, msups),
+                              (mu, mut, scale, msup)):
+                acc.append(t)
         return torch.stack(mus), torch.stack(scales), torch.stack(msups)
 
     def finish_prog_slice(self, y_hat_raw, mean_support, base_i, i: int):
@@ -260,6 +277,38 @@ class VarianceMaskingPIC(nn.Module):
         """The REM hook of the progressive params at one quality: the
         identity here (``VarianceMaskingPICREM`` refines)."""
         return mus, scales
+
+    def refine_prog_params(self, i: int, quality, mu, scale, checkpoint_ref,
+                           mu_base_i, std_base_i):
+        """The REM hook of progressive slice i at one quality (the
+        interleaved chain): the identity here."""
+        return mu, scale
+
+    def prog_slices_non_scalable(self, r_s, quality: float, base, lm_e, ls_e,
+                                 training: bool, generator,
+                                 checkpoint_ref=None, mus_b=None,
+                                 scales_b=None):
+        """The progressive chain of ``all_scalable=False`` at one quality:
+        slice i's params are supported on the decoded progressive slices
+        0..i-1 of this quality, then (with a checkpoint latent) REM-refined
+        for its masking and coding. r_s: the residual slices [S, B, h, w,
+        c]. Returns lists (decoded slices, likelihoods, mus, scales)."""
+        prog, liks, mus, scales = [], [], [], []
+        for i in range(r_s.shape[0]):
+            mu, _, scale, msup = self.prog_slice_params(lm_e, ls_e, base[i],
+                                                        prog, prog, i)
+            if checkpoint_ref is not None:
+                mu, scale = self.refine_prog_params(
+                    i, quality, mu, scale, checkpoint_ref, mus_b[i],
+                    scales_b[i])
+            mask = apply_noise_mask(
+                variance_mask(scale, quality, self.mask_policy), False)
+            y_hat_i, lik = self._masked_slice(r_s[i], mu, scale, mask,
+                                              training, generator)
+            prog.append(self.finish_prog_slice(y_hat_i, msup, base[i], i))
+            for acc, t in zip((liks, mus, scales), (lik, mu, scale)):
+                acc.append(t)
+        return prog, liks, mus, scales
 
     # ---- training forwards ----
     def _train_front(self, x, training: bool, generator):
@@ -293,12 +342,16 @@ class VarianceMaskingPIC(nn.Module):
                 acc.append(t)
         return out
 
-    def _residuals(self, y: torch.Tensor) -> torch.Tensor:
+    def residuals(self, y: torch.Tensor) -> torch.Tensor:
         """The progressive residual slices [S, B, h, w, c]: enhancement
-        slice minus base slice (delta coding)."""
+        slice minus base slice with ``delta_encode``, else the enhancement
+        slice."""
         c, ns0, nprog = self.dim_chunk, self.ns0, self.ns1 - self.ns0
+        enh = slices_of(y, ns0, ns0 + nprog, c)
+        if not self.delta_encode:
+            return torch.stack(enh)
         return torch.stack([a - b for a, b in zip(
-            slices_of(y, ns0, ns0 + nprog, c), slices_of(y, 0, nprog, c))])
+            enh, slices_of(y, 0, nprog, c))])
 
     def _masked_slice(self, r_i, mu, scale, mask, training: bool,
                       generator):
@@ -331,7 +384,9 @@ class VarianceMaskingPIC(nn.Module):
         [L,B,h,w,d1] (base + that level's slices), "z"}, "y_base", "y_prog",
         "prog_scales", "prog_mus"}, for the qualities (0 first) of
         ``quality`` (default [0, 10]). ``generator`` draws the training
-        noise."""
+        noise. Without ``all_scalable`` the chain runs once per quality,
+        "y_prog" is the last quality's latent [B,h,w,d1-d0] and there are
+        no "prog_scales" / "prog_mus", as in the JAX package."""
         qualities = self._define_quality(quality)
         y, z_lik, lm, ls = self._train_front(x, training, generator)
         base, base_liks, _, _ = self._train_base_chain(y, lm, ls, training,
@@ -346,6 +401,22 @@ class VarianceMaskingPIC(nn.Module):
                     "likelihoods": {"y": y_lik_base, "z": z_lik},
                     "y_base": y_hat_b}
         d0 = self.division[0]
+        r_s = self.residuals(y)
+        if not self.all_scalable:
+            x_hats, lik_levels = [x_hat_base[None]], []
+            for q in prog_qs:
+                prog, liks, _, _ = self.prog_slices_non_scalable(
+                    r_s, q, base, lm[..., d0:], ls[..., d0:], training,
+                    generator)
+                y_hat_q = torch.cat(prog, dim=-1)
+                x_hats.append(self.synthesize_prog(y_hat_q)[None])
+                lik_levels.append(torch.cat([y_lik_base] + liks,
+                                            dim=-1)[None])
+            return {"x_hat": torch.cat(x_hats, dim=0),
+                    "likelihoods": {"y": y_lik_base,
+                                    "y_prog": torch.cat(lik_levels, dim=0),
+                                    "z": z_lik},
+                    "y_base": y_hat_b, "y_prog": y_hat_q}
         mus, scales, msups = self.prog_param_chain(base, lm[..., d0:],
                                                    ls[..., d0:])
         levels, b = len(prog_qs), x.shape[0]
@@ -353,11 +424,10 @@ class VarianceMaskingPIC(nn.Module):
         def fold(t):  # [B, ...] -> [L*B, ...], level-major
             return t.repeat((levels,) + (1,) * (t.dim() - 1))
 
-        r_s = self._residuals(y)
         prog_slices, prog_liks = [], []
         for i in range(r_s.shape[0]):
-            mask = torch.stack([apply_noise_mask(variance_mask(scales[i], q),
-                                                 False) for q in prog_qs])
+            mask = torch.stack([apply_noise_mask(variance_mask(
+                scales[i], q, self.mask_policy), False) for q in prog_qs])
             y_hat_i, lik = self._masked_slice(r_s[i][None], mus[i][None],
                                               scales[i][None], mask,
                                               training, generator)
@@ -403,20 +473,27 @@ class VarianceMaskingPIC(nn.Module):
                     "mu": torch.cat(mus_b, dim=-1),
                     "std": torch.cat(scales_b, dim=-1)}
         d0 = self.division[0]
-        mus, scales, msups = self.prog_param_chain(base, lm[..., d0:],
-                                                   ls[..., d0:])
-        mus, scales = self.refine_prog_params_all(
-            quality, mus, scales, checkpoint_ref, torch.stack(mus_b),
-            torch.stack(scales_b))
-        r_s = self._residuals(y)
-        prog_slices, prog_liks = [], []
-        for i in range(r_s.shape[0]):
-            mask = apply_noise_mask(variance_mask(scales[i], quality), False)
-            y_hat_i, lik = self._masked_slice(r_s[i], mus[i], scales[i], mask,
-                                              training, generator)
-            prog_slices.append(self.finish_prog_slice(y_hat_i, msups[i],
-                                                      base[i], i))
-            prog_liks.append(lik)
+        r_s = self.residuals(y)
+        if not self.all_scalable:
+            prog_slices, prog_liks, mus, scales = \
+                self.prog_slices_non_scalable(
+                    r_s, quality, base, lm[..., d0:], ls[..., d0:], training,
+                    generator, checkpoint_ref, mus_b, scales_b)
+        else:
+            mus, scales, msups = self.prog_param_chain(base, lm[..., d0:],
+                                                       ls[..., d0:])
+            mus, scales = self.refine_prog_params_all(
+                quality, mus, scales, checkpoint_ref, torch.stack(mus_b),
+                torch.stack(scales_b))
+            prog_slices, prog_liks = [], []
+            for i in range(r_s.shape[0]):
+                mask = apply_noise_mask(variance_mask(
+                    scales[i], quality, self.mask_policy), False)
+                y_hat_i, lik = self._masked_slice(
+                    r_s[i], mus[i], scales[i], mask, training, generator)
+                prog_slices.append(self.finish_prog_slice(y_hat_i, msups[i],
+                                                          base[i], i))
+                prog_liks.append(lik)
         y_hat_p = torch.cat(prog_slices, dim=-1)
         return {"x_hat": torch.clamp(self.synthesize_prog(y_hat_p), 0.0, 1.0),
                 "likelihoods": {"y": torch.cat([y_lik_base] + prog_liks,

@@ -6,17 +6,20 @@ quality bracket between the ``check_levels``. Each bank holds the
 per-slice modules stacked over the slice axis, as the JAX package's
 checkpoints store ``post_latent_{r}``.
 
-Two refinements, each as the JAX package computes it:
+Three refinements, each as the JAX package computes it:
 
 - ``refine_prog_params_all`` (one quality, every slice): the support chain
   stays unrefined; only the masking and coding at that quality use the
   refined params. Checkpoint extraction uses it.
+- ``refine_prog_params`` (one quality, one slice): the same refinement
+  inside the interleaved chain of ``all_scalable=False``, whose support is
+  the decoded progressive slices.
 - ``rem_chain_params`` (the single-bitstream codec): inside the slice
   chain, checkpoint j refines (mu, scale) with the bank of
   ``check_levels[j]`` conditioned on checkpoint j's latent. j = 0 is a
   no-op (the JAX package returns early at quality <= check_levels[0]), so
   one checkpoint gives the plain chain. The support chains off the
-  unrefined mu + base_i and the refined scale.
+  unrefined mu_total and the refined scale.
 
 Its training forward is single-quality (``forward`` is
 ``forward_single_quality``, whose REM hook is ``refine_prog_params_all``).
@@ -102,12 +105,33 @@ class VarianceMaskingPICREM(VarianceMaskingPIC):
         params_base = torch.cat([mus_b[:nprog], scales_b[:nprog]], dim=-1)
         params_prog = (torch.cat([mus, scales], dim=-1) if self.mu_std
                        else scales)
-        att = prog_mask(scales, quality)
+        att = prog_mask(scales, quality, self.mask_policy)
         if self.mu_std:
             att = torch.cat([att, att], dim=-1)
         out = self.bank(self.rem_bank_index(quality)).apply_all(
             ckpt_s, params_base, params_prog, att)
         return self._split(out, mus)
+
+    def refine_prog_params(self, i: int, quality: float, mu: torch.Tensor,
+                           scale: torch.Tensor, checkpoint_ref,
+                           mu_base_i: torch.Tensor, std_base_i: torch.Tensor):
+        """Refine progressive slice i at one quality from its checkpoint
+        slice (bank ``rem_bank_index(quality)``, attention mask the variance
+        mask of the unrefined scale). No refinement at or below the first
+        check level. Returns (mu, scale)."""
+        if checkpoint_ref is None or quality <= self.check_levels[0]:
+            return mu, scale
+        c = self.dim_chunk
+        params_base = torch.cat([mu_base_i, std_base_i], dim=-1)
+        params_prog = (torch.cat([mu, scale], dim=-1) if self.mu_std
+                       else scale)
+        att = variance_mask(scale, quality, self.mask_policy)
+        if self.mu_std:
+            att = torch.cat([att, att], dim=-1)
+        out = self.bank(self.rem_bank_index(quality)).apply_slice(
+            i, checkpoint_ref[..., i * c:(i + 1) * c], params_base,
+            params_prog, att)
+        return self._split(out, mu)
 
     def rem_chain_params(self, base_slices: Sequence[torch.Tensor],
                          lm_e: torch.Tensor, ls_e: torch.Tensor,
@@ -121,21 +145,14 @@ class VarianceMaskingPICREM(VarianceMaskingPIC):
             return self.prog_param_chain(base_slices, lm_e, ls_e)
         nprog = self.ns1 - self.ns0
         ckpt_s = [self._blocked(ck, nprog) for ck in ckpts]
-        n = self.n_slots_prog
-        mut_buf = [torch.zeros_like(base_slices[0])] * n
-        std_buf = [torch.zeros_like(base_slices[0])] * n
-        mus, scales, msups = [], [], []
+        mus, muts, scales, msups = [], [], [], []
         for i in range(nprog):
-            base_i = base_slices[i]
-            mean_support = torch.cat([lm_e, base_i] + mut_buf, dim=-1)
-            scale_support = torch.cat([ls_e, base_i] + std_buf, dim=-1)
-            mu = self.cc_mean_prog(mean_support, i)
-            mut = mu + base_i
-            scale = self.cc_scale_prog(scale_support, i)
+            mu, mut, scale, mean_support = self.prog_slice_params(
+                lm_e, ls_e, base_slices[i], muts, scales, i)
             params_base = torch.cat([mus_b[i], scales_b[i]], dim=-1)
             for j in range(1, len(ckpts)):  # j = 0: no-op
                 q_j = self.check_levels[j]
-                att = variance_mask(scale, q_j)
+                att = variance_mask(scale, q_j, self.mask_policy)
                 if self.mu_std:
                     att = torch.cat([att, att], dim=-1)
                 params_prog = (torch.cat([mu, scale], dim=-1) if self.mu_std
@@ -143,12 +160,9 @@ class VarianceMaskingPICREM(VarianceMaskingPIC):
                 out = self.bank(self.rem_bank_index(q_j)).apply_slice(
                     i, ckpt_s[j][i], params_base, params_prog, att)
                 mu, scale = self._split(out, mu)
-            if n > 0:
-                mut_buf = mut_buf[1:] + [mut]
-                std_buf = std_buf[1:] + [scale]
-            mus.append(mu)
-            scales.append(scale)
-            msups.append(mean_support)
+            for acc, t in zip((mus, muts, scales, msups),
+                              (mu, mut, scale, mean_support)):
+                acc.append(t)
         return torch.stack(mus), torch.stack(scales), torch.stack(msups)
 
     @torch.no_grad()

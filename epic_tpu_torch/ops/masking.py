@@ -6,6 +6,10 @@ decoded std fields, so these functions must give the same bits on both
 sides. The threshold is the JAX package's ``jnp.quantile`` (linear
 interpolation at 1 - q/10 over each sample's sorted values), written out as
 a sort and an explicit float32 lerp, and ``>=`` keeps ties.
+
+Two policies, as in the JAX package: "point-based-std" (the above, the
+default) and "two-levels" (nothing at quality 0, everything above it).
+Any other raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -39,10 +43,16 @@ def _quantile_mask(scale: torch.Tensor, p_keep: float) -> torch.Tensor:
     return (flat >= thr[:, None]).to(scale.dtype).reshape(scale.shape)
 
 
-def variance_mask(scale: torch.Tensor, pr: float) -> torch.Tensor:
+def variance_mask(scale: torch.Tensor, pr: float,
+                  policy: str = "point-based-std") -> torch.Tensor:
     """Binary mask of the top pr*10% highest-std elements of each sample
     of scale [B, ...]; pr in [0, 10]. q <= 0 and q >= 10 short-cut to all
-    zeros / all ones."""
+    zeros / all ones. The "two-levels" policy gives all zeros at quality 0
+    and all ones at any other."""
+    if policy == "two-levels":
+        return torch.zeros_like(scale) if pr == 0 else torch.ones_like(scale)
+    if policy != "point-based-std":
+        raise NotImplementedError(f"mask policy {policy!r}")
     if pr >= 10:
         return torch.ones_like(scale)
     if pr <= 0:
@@ -50,11 +60,12 @@ def variance_mask(scale: torch.Tensor, pr: float) -> torch.Tensor:
     return _quantile_mask(scale, pr * 0.1)
 
 
-def prog_mask(scales: torch.Tensor, pr: float) -> torch.Tensor:
+def prog_mask(scales: torch.Tensor, pr: float,
+              policy: str = "point-based-std") -> torch.Tensor:
     """variance_mask per (slice, sample) of stacked scales [S, B, ...]."""
     s, b = scales.shape[:2]
     return variance_mask(scales.reshape(s * b, *scales.shape[2:]),
-                         pr).reshape(scales.shape)
+                         pr, policy).reshape(scales.shape)
 
 
 def delta_shell_mask(scales: torch.Tensor, q_init: float,

@@ -7,7 +7,9 @@ reconstruction levels, base first) or [B,H,W,3].
 
 The hyperprior term is weighted by ``x_hat.shape[0]``, as in the JAX
 package and the work it reproduces: the level count for multi-quality
-outputs, and the batch size for single-quality ones.
+outputs, and the batch size for single-quality ones. ``hyper_weight``
+replaces that weight: a data-parallel step passes the global batch size,
+so that its ranks' losses average to the global batch's.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ def _levels_mse(x_hat: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return (diff * diff).mean(dim=tuple(range(1, diff.dim())))  # [L]
 
 
-def _rate_terms(output, target) -> Dict[str, torch.Tensor]:
+def _rate_terms(output, target, hyper_weight=None
+                ) -> Dict[str, torch.Tensor]:
     b, h, w, _ = target.shape
     den = -math.log(2) * b * h * w
     lik = output["likelihoods"]
@@ -37,7 +40,8 @@ def _rate_terms(output, target) -> Dict[str, torch.Tensor]:
     out["bpp_scalable"] = (torch.log(lik["y_prog"]).sum() / den
                            if "y_prog" in lik
                            else torch.zeros((), device=target.device))
-    levels = output["x_hat"].shape[0]
+    levels = (output["x_hat"].shape[0] if hyper_weight is None
+              else hyper_weight)
     out["bpp_loss"] = (out["bpp_scalable"] + out["bpp_base"]
                        + levels * out["bpp_hype"])
     return out
@@ -49,12 +53,12 @@ def _as_lmbda(lmbda, device) -> torch.Tensor:
 
 
 def scalable_rate_distortion_loss(output, target, lmbda=None,
-                                  weight: float = WEIGHT):
+                                  weight: float = WEIGHT, hyper_weight=None):
     """Multi-quality R-D (first_train): lmbda holds one weight per level
     (default (0.0055, 0.04))."""
     if lmbda is None:
         lmbda = DEFAULT_LMBDA_LIST
-    out = _rate_terms(output, target)
+    out = _rate_terms(output, target, hyper_weight)
     mse = _levels_mse(output["x_hat"], target)
     out["mse_loss"] = mse
     out["loss"] = out["bpp_loss"] + weight * torch.mean(
@@ -62,9 +66,10 @@ def scalable_rate_distortion_loss(output, target, lmbda=None,
     return out
 
 
-def rate_distortion_loss(output, target, lmbda, weight: float = WEIGHT):
+def rate_distortion_loss(output, target, lmbda, weight: float = WEIGHT,
+                         hyper_weight=None):
     """Single-lambda R-D (refine_gs_ga, one lambda per sampled quality)."""
-    out = _rate_terms(output, target)
+    out = _rate_terms(output, target, hyper_weight)
     mse = _levels_mse(output["x_hat"], target)
     out["mse_loss"] = mse
     out["loss"] = out["bpp_loss"] + weight * torch.mean(
@@ -72,20 +77,22 @@ def rate_distortion_loss(output, target, lmbda, weight: float = WEIGHT):
     return out
 
 
-def distortion_loss(output, target, lmbda=1e-2, weight: float = WEIGHT):
+def distortion_loss(output, target, lmbda=1e-2, weight: float = WEIGHT,
+                    hyper_weight=None):
     """Distortion only (refine_gs: the decoder's fine-tune); the rate terms
     are bookkeeping."""
-    out = _rate_terms(output, target)
+    out = _rate_terms(output, target, hyper_weight)
     mse = _levels_mse(output["x_hat"], target)
     out["mse_loss"] = mse
     out["loss"] = weight * torch.mean(_as_lmbda(lmbda, target.device) * mse)
     return out
 
 
-def rate_loss(output, target, lmbda=None, weight: float = WEIGHT):
+def rate_loss(output, target, lmbda=None, weight: float = WEIGHT,
+              hyper_weight=None):
     """Rate only (rems: REMs can only shrink the rate)."""
     del lmbda, weight
-    out = _rate_terms(output, target)
+    out = _rate_terms(output, target, hyper_weight)
     out["mse_loss"] = _levels_mse(output["x_hat"], target)
     out["loss"] = out["bpp_loss"]
     return out

@@ -38,17 +38,19 @@ class TrainStep:
         self.criterion = CRITERIA[plan.criterion]
 
     def loss(self, batch: torch.Tensor, generator=None, quality=None,
-             lmbda=None, checkpoint_ref=None) -> Dict[str, torch.Tensor]:
+             lmbda=None, checkpoint_ref=None,
+             hyper_weight=None) -> Dict[str, torch.Tensor]:
         """The stage criterion's outputs ("loss", "mse_loss", "bpp_*") of
-        one forward."""
+        one forward (``hyper_weight``: see ``losses``)."""
         if not self.plan.sampling:
             out = self.model.multi_quality(
                 batch, list(self.plan.list_quality), self.training,
                 generator)
-            return self.criterion(out, batch, self.plan.lmbda_list)
+            return self.criterion(out, batch, self.plan.lmbda_list,
+                                  hyper_weight=hyper_weight)
         out = self.model.forward_single_quality(
             batch, quality, self.training, checkpoint_ref, generator)
-        return self.criterion(out, batch, lmbda)
+        return self.criterion(out, batch, lmbda, hyper_weight=hyper_weight)
 
     @staticmethod
     def gradients(state: TrainState,

@@ -15,7 +15,12 @@ transitions, each stage a launch of its own:
   plateau drops the learning rate after the second epoch, the Adam moments
   kept;
 - each stage's checkpoint read by the JAX package's ``load_checkpoint`` to
-  the arrays the port reads.
+  the arrays the port reads;
+- the non-default PIC options through the CLI's flags (``--no_all_scalable
+  --no_delta_encode --no_total_mu_rep --mask_policy two-levels``): a
+  first_train launch with its validation and real-codec evaluation (the
+  interleaved codec), then ``--model rem`` from its checkpoint; both
+  checkpoints load with the options.
 
 No JAX program is compiled: the JAX loader is numpy code. Without
 ``--device`` and without a GPU, ``main`` raises.
@@ -210,3 +215,38 @@ def test_checkpoint_read_by_jax(runs, stage):
     assert sorted(port) == sorted(ref)
     for k, v in ref.items():
         np.testing.assert_array_equal(port[k], v, err_msg=k)
+
+
+def test_cli_train_without_all_scalable(tmp_path):
+    """``cli.train --no_all_scalable --no_delta_encode --no_total_mu_rep
+    --mask_policy two-levels`` (first_train, 1 epoch of 2 steps, with its
+    validation and real-codec evaluation), then ``--model rem`` from that
+    checkpoint through the interleaved codec's checkpoint latents: both
+    stages train to finite losses and their checkpoints load with the
+    options."""
+    train_root, kodak = _data_dirs(tmp_path)
+    save = str(tmp_path / "ckpt")
+    common = TINY_FLAGS + ["--training_dataset", train_root,
+                           "--test_dataset", kodak, "--save_path", save,
+                           "--epochs", "1", "--eval_every", "1"]
+    argv = {"first_train": ["--steps_per_epoch", "2", "--no_all_scalable",
+                            "--no_delta_encode", "--no_total_mu_rep",
+                            "--mask_policy", "two-levels"],
+            "rems": ["--steps_per_epoch", "1", "--model", "rem",
+                     "--checkpoint", os.path.join(save, "first_train"),
+                     "--check_levels", "0.25", "0.75", "--check_levels_np",
+                     "4", "4", "--dimension", "middle"]}
+    for stage, extra in argv.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rep = train_main(common + ["--training_type", stage] + extra)
+        assert rep["steps"] == int(extra[1])
+        assert np.isfinite(rep["train_loss"]) and np.isfinite(
+            rep["val"]["loss"])
+        assert np.all(np.isfinite(rep["real"]["bpp"]))
+        model, cfg, _ = load_checkpoint(os.path.join(save, stage))
+        assert (model.all_scalable, model.delta_encode, model.total_mu_rep,
+                model.mask_policy) == (False, False, False, "two-levels")
+        assert type(model).__name__ == ("VarianceMaskingPICREM"
+                                        if stage == "rems"
+                                        else "VarianceMaskingPIC")
