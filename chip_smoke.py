@@ -148,15 +148,31 @@ Phases, one progress line each (flush=True):
     flagship ``pic`` on 4 synthetic 768x512 images: 2 processes sharing
     the card (rows gathered over gloo) against 1 process, rows bitwise.
 
+18. the image readers and the repository tools: the committed image
+    fixtures (``tests/fixtures/images``: JPEG, PNG, BMP, PPM) decoded by
+    ``data/images.read_image`` to the SHA-256 of Pillow's decode;
+    ``read_jpeg`` timed on the 768x512 baseline and progressive files; the
+    host loader (``ImageFolder`` + ``data_loader``, batch 16) on copies of
+    them, beside PNG files of the same pixels; ``tools.eval_checkpoint`` on
+    phase 9's rems checkpoint (6 tiles of the 768x512 JPEG) and
+    ``tools.eval_cnn`` on phase 11's WACNN one, launches per call, real bpp
+    equal to the streams' bytes at all 16 levels, the REM group present;
+    ``tools.extend_rem_banks`` to one more check level (1.75), the result
+    loaded (kept arrays bitwise) and coded at q = 2 with its three
+    checkpoint latents; ``tools.bench_rans`` at 4,000,000 symbols. Within
+    150 s.
+
 ``python3 chip_smoke.py --phases 16,17`` runs the environment, the build
-and the listed phases only (and prints no kernels record).
+and the listed phases only (and prints no kernels record); ``--phases 18``
+runs phase 18 on random-weight stand-ins of phases 9 and 11's
+checkpoints.
 
 Each path's kernel launches are counted from zero and must match its count
 (GDN 6 per encode or ``compress``; IGDN 3 per decoded level, 48 for
 levels 0..15, 9 per ``decode_all``, 3 per ``decompress``; 15 per pipelined
 sweep of 4 images; WACNN 3 GDN per ``compress`` and 3 IGDN per
 ``decompress``; the training launches in phases 9, 11, 14 and 15; the file
-CLI and RD evaluation in phases 12-13; phase 16's interleaved codec as the
+CLI and RD evaluation in phases 12-13, the tools in phase 18; phase 16's interleaved codec as the
 all_scalable one (6 GDN per ``compress``, 3 IGDN per ``decompress``) and
 its ``cli.train`` steps as phase 15's; phase 17's steps, each rank's
 counted in its process, and the sweep's 6 GDN + 9 IGDN per image; no
@@ -2223,6 +2239,276 @@ def phase_parallel(smi: str, work: str, sweep_too: bool = True):
     return launches
 
 
+# phase 18: the image fixtures (tests/gen_torch_image_fixtures.py), the
+# 768x512 JPEG files timed and copied into the loader's folder, and the
+# level that extend_rem_banks adds to phase 9's check levels
+IMAGE_FIXTURES = os.path.join("tests", "fixtures", "images")
+TIMED_JPEGS = ("photo768_baseline.jpg", "photo768_progressive.jpg")
+LOADER_COPIES, LOADER_BATCH, LOADER_STEPS = 16, 16, 6
+EXTEND_LEVEL = 1.75
+PHASE18_LIMIT_S = 150
+# one eval_checkpoint call on a rem checkpoint with two check levels: the
+# plain estimate (one multi-quality forward: g_a_0 + g_a_1, g_s_0 + g_s_1),
+# the plain ladder (encode, decode_all), the shell table (an encode), the
+# REM ladder (two checkpoint extractions, encode, decode_all) and the
+# per-quality REM rows (two extractions, then at 1 / 2 / 4 / 10 two
+# compresses and two decompresses)
+EVAL_CKPT_LAUNCHES = {"gdn": 6 + 6 + 6 + (12 + 6) + (12 + 4 * 12),
+                      "igdn": 6 + 9 + 9 + 4 * 2 * 3}
+# eval_cnn, one group: the estimate's forward (g_a, g_s), compress (g_a),
+# decompress (g_s)
+EVAL_CNN_LAUNCHES = {"gdn": 6, "igdn": 6}
+
+
+def _standalone_checkpoints(work: str):
+    """For ``--phases 18`` alone: random-weight stand-ins (seed 0) of phase
+    9's flagship rems checkpoint and phase 11's WACNN one."""
+    from epic_tpu_torch import get_model
+    from epic_tpu_torch.tools.workload import FLAGSHIP
+    from epic_tpu_torch.training.checkpoint import save_checkpoint
+
+    out = []
+    for name, cfg in (("rem", FLAGSHIP), ("cnn", WACNN)):
+        path = os.path.join(work, "standalone", name)
+        save_checkpoint(path, get_model(name, **cfg).init_weights(0),
+                        {k: list(v) if isinstance(v, tuple) else v
+                         for k, v in dict(cfg, model=name).items()})
+        out.append(path)
+    return out
+
+
+def _median_ms(fn, reps: int = 20) -> float:
+    fn()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t)
+    return 1e3 * float(np.median(times))
+
+
+def _loader_seconds(root: str) -> tuple:
+    """``ImageFolder`` (patch 256) + ``data_loader`` (batch 16, 8 threads)
+    over ``root``/train: (first batch s, median s of the next ones)."""
+    from epic_tpu_torch.data.datasets import ImageFolder, data_loader
+
+    it = data_loader(ImageFolder(root, "train", TRAIN_PATCH), LOADER_BATCH,
+                     seed=0, steps=LOADER_STEPS)
+    walls = []
+    while True:
+        t = time.perf_counter()
+        batch = next(it, None)
+        if batch is None:
+            break
+        walls.append(time.perf_counter() - t)
+        if batch.shape != (LOADER_BATCH, TRAIN_PATCH, TRAIN_PATCH, 3) or \
+                batch.dtype != np.float32:
+            raise AssertionError(f"loader batch {batch.shape} {batch.dtype}")
+    return walls[0], float(np.median(walls[1:]))
+
+
+def phase_images_and_tools(smi: str, work: str, rems_ckpt: str,
+                           cnn_ckpt: str) -> dict:
+    """Phase 18: (a) the image readers: every committed fixture decoded to
+    the SHA-256 that Pillow's decode gave (tests/fixtures/images/
+    checksums.json), ``read_jpeg`` timed on the 768x512 baseline and
+    progressive files (median of 20), and the host loader's seconds per
+    batch of 16 on a folder of copies of them, beside the same pixels as
+    PNG files; (b) ``tools.eval_checkpoint`` on ``rems_ckpt`` (bf16,
+    ``--images`` a folder holding the 768x512 baseline JPEG: 6 tiles of
+    256x256) and ``tools.eval_cnn`` on ``cnn_ckpt``, launches counted per
+    call: real bpp equal to the captured streams' bytes at every level, 16
+    rows, the REM group present; (c) ``tools.extend_rem_banks`` from the
+    checkpoint's check levels to those plus EXTEND_LEVEL, the result
+    loaded: kept banks and every other array bitwise the source's, one
+    ``compress`` / ``decompress`` at q = 2 with the three chained
+    checkpoint latents, bitwise; (d) ``tools.bench_rans`` at 4,000,000
+    symbols. Returns the launches by path."""
+    import shutil
+
+    import epic_tpu_torch as et
+    import epic_tpu_torch.codec as et_codec
+    from epic_tpu_torch.data.images import read_image
+    from epic_tpu_torch.data.jpeg import read_jpeg
+    from epic_tpu_torch.data.png import write_png
+    from epic_tpu_torch.native.build import build_jpeg_library
+    from epic_tpu_torch.tools import (bench_rans, eval_checkpoint, eval_cnn,
+                                      extend_rem_banks)
+    from epic_tpu_torch.tools.workload import images
+
+    tag = "18 images+tools"
+    t_phase = time.perf_counter()
+    t = time.perf_counter()
+    build_jpeg_library()
+    log(f"[{tag}] epic_jpeg.cpp (g++) {time.perf_counter() - t:.1f} s")
+
+    # (a) decoding
+    fdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        IMAGE_FIXTURES)
+    with open(os.path.join(fdir, "checksums.json")) as f:
+        sums = json.load(f)
+    for name, digest in sums.items():
+        got = hashlib.sha256(np.ascontiguousarray(read_image(
+            os.path.join(fdir, name))).tobytes()).hexdigest()
+        if got != digest:
+            raise AssertionError(f"{name}: decoded SHA-256 {got} differs "
+                                 f"from Pillow's {digest}")
+    log(f"[{tag}] {len(sums)} fixtures (JPEG, PNG, BMP, PPM) decoded to "
+        "Pillow's SHA-256: " + ", ".join(sorted(sums)))
+    decoded = {}
+    for name in TIMED_JPEGS:
+        path = os.path.join(fdir, name)
+        ms = _median_ms(lambda: read_jpeg(path))
+        decoded[name] = read_jpeg(path)
+        h, w = decoded[name].shape[:2]
+        log(f"[{tag}] read_jpeg {name} ({w}x{h}): {ms:.2f} ms median of 20 "
+            f"({h * w / ms / 1e3:.1f} Mpixel/s, one host thread)")
+    roots = {"jpeg": os.path.join(work, "loader_jpeg"),
+             "png": os.path.join(work, "loader_png")}
+    for r in roots.values():
+        os.makedirs(os.path.join(r, "train"))
+    for i in range(LOADER_COPIES):
+        for name in TIMED_JPEGS:
+            stem = f"{i:02d}_{os.path.splitext(name)[0]}"
+            shutil.copyfile(os.path.join(fdir, name), os.path.join(
+                roots["jpeg"], "train", stem + ".jpg"))
+            write_png(os.path.join(roots["png"], "train", stem + ".png"),
+                      decoded[name])
+    for kind, r in roots.items():
+        first, per = _loader_seconds(r)
+        log(f"[{tag}] loader on {2 * LOADER_COPIES} 768x512 {kind.upper()} "
+            f"files: first batch of {LOADER_BATCH} {first:.3f} s, then "
+            f"{per:.4f} s per batch (median of {LOADER_STEPS - 1}, 8 "
+            "threads)")
+
+    # (b) the evaluation tools
+    crops = os.path.join(work, "eval_crops")
+    os.makedirs(crops)
+    shutil.copyfile(os.path.join(fdir, TIMED_JPEGS[0]),
+                    os.path.join(crops, TIMED_JPEGS[0]))
+    captured, encode = [], et_codec.progressive_encode
+
+    def capture(*a, **kw):
+        out = encode(*a, **kw)
+        captured.append(out[0])
+        return out
+
+    quiet = io.StringIO()
+    et_codec.progressive_encode = capture
+    try:
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(quiet):
+            res, n_eval = _counted(lambda: eval_checkpoint.main(
+                [rems_ckpt, "--images", crops, "--out",
+                 os.path.join(work, "eval.json")]))
+        eval_s = time.perf_counter() - t
+    finally:
+        et_codec.progressive_encode = encode
+    _expect(tag, "eval_checkpoint", n_eval, EVAL_CKPT_LAUNCHES)
+    groups = res["groups"]
+    if set(groups) != {"val", "val_rem"} or len(captured) != 2:
+        raise AssertionError(f"eval_checkpoint groups {sorted(groups)}, "
+                             f"{len(captured)} encodes")
+    npix = groups["val"]["n_crops"] * 256 * 256
+    for name, bs in zip(("val", "val_rem"), captured):
+        g = groups[name]
+        z_bits = 8.0 * sum(len(s) for s in bs["z"])
+        want = [round((z_bits + 8.0 * float(bs["prefix"][:, k].sum()))
+                      / npix, 4) for k in range(bs["prefix"].shape[1])]
+        if (g["real_bpp"] != want or len(g["real_bpp"]) != 16
+                or len(g["psnr"]) != 16 or len(g["msssim_db"]) != 16
+                or int(bs["prefix"][:, -1].sum())
+                != sum(len(s) for s in bs["y"])):
+            raise AssertionError(f"eval_checkpoint {name}: real bpp "
+                                 f"{g['real_bpp']} != the streams' {want}")
+        if not all(map(math.isfinite, g["psnr"] + g["est_bpp"])):
+            raise AssertionError(f"eval_checkpoint {name}: not finite")
+    g = groups["val"]
+    log(f"[{tag}] eval_checkpoint (rems checkpoint, bf16, "
+        f"{g['n_crops']} crops of 256x256 from the 768x512 JPEG): "
+        f"{eval_s:.1f} s; real bpp of the 16 levels equal to the streams' "
+        f"bytes in both groups; top level {g['real_bpp'][-1]} bpp (REM "
+        f"{groups['val_rem']['real_bpp'][-1]}), est {g['est_bpp'][-1]}, "
+        f"PSNR {g['psnr'][-1]} dB, shells "
+        f"{[r['elems'] for r in g['shells']['per_shell']]}, REM rows "
+        f"{[(r['q'], r['rate_saving_pct']) for r in g['rem_per_quality']]}")
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(quiet):
+        res, n_cnn = _counted(lambda: eval_cnn.main(
+            [cnn_ckpt, "--images", crops, "--regions", "val"]))
+    cnn_s = time.perf_counter() - t
+    _expect(tag, "eval_cnn", n_cnn, EVAL_CNN_LAUNCHES)
+    g = res["groups"]["val"]
+    if g["streams_per_image"] != 1 or not math.isfinite(g["psnr"]):
+        raise AssertionError(f"eval_cnn: {g}")
+    log(f"[{tag}] eval_cnn (WACNN checkpoint, bf16): {cnn_s:.1f} s; "
+        f"{g['bpp']} bpp (est {g['est_bpp']}), PSNR {g['psnr']} dB, "
+        f"MS-SSIM {g['msssim_db']} dB, 1 stream per image")
+
+    # (c) extend the REM banks
+    src, src_cfg, _ = et.load_checkpoint(rems_ckpt)
+    old = [float(c) for c in src_cfg["check_levels"]]
+    dst = os.path.join(work, "extended", "rems")
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(quiet):
+        extend_rem_banks.main([rems_ckpt, dst, "--check_levels",
+                               *map(str, old + [EXTEND_LEVEL])])
+    ext_s = time.perf_counter() - t
+    model, cfg, step = et.load_checkpoint(dst)
+    with open(os.path.join(work, "extended", "progress.json")) as f:
+        prog = json.load(f)
+    if cfg["check_levels"] != old + [EXTEND_LEVEL] or step != 0 or \
+            prog["stage"] != "rems" or prog["next_step"] != 1:
+        raise AssertionError(f"extended checkpoint: {cfg['check_levels']}, "
+                             f"step {step}, {prog}")
+    a, b = src.state_dict(), model.state_dict()
+    fresh = f"post_latent_{len(old)}."
+    kept = [k for k in b if not k.startswith(fresh)]
+    if set(kept) != set(a) or not all(torch.equal(a[k], b[k])
+                                      for k in kept):
+        raise AssertionError("the extended checkpoint's kept arrays differ "
+                             "from the source's")
+    del src, a, b
+    codec = et.PICCodec(model, device="cuda")
+    x, _ = images()
+
+    def code():
+        ck = None
+        for cl in model.check_levels:
+            ck = codec.extract_checkpoint(x, cl, checkpoint_rep=ck)
+        out = codec.compress(x, 2.0, return_latents=True,
+                             checkpoint_rep=ck)
+        return out, codec.decompress(out, checkpoint_rep=ck)
+
+    (out, dec), n_ext = _counted(code)
+    _expect(tag, "extended model: 3 extractions, compress, decompress",
+            n_ext, {"gdn": 6 * 4, "igdn": 3})
+    if not torch.equal(dec["y_hat"], out["y_hat"]):
+        raise AssertionError("extended model: decoder y_hat differs")
+    y_strings, z_strings = out["strings"]
+    nbytes = sum(len(s) for sl in y_strings for s in sl) + sum(
+        len(s) for s in z_strings)
+    log(f"[{tag}] extend_rem_banks {old} -> {cfg['check_levels']} "
+        f"{ext_s:.1f} s: {len(kept)} arrays bitwise the source's, bank "
+        f"{len(old)} fresh; compress / decompress at q=2 with the three "
+        f"checkpoint latents bitwise, {nbytes * 8 / (x.shape[1] * x.shape[2]):.4f} bpp")
+    del codec, model
+    torch.cuda.empty_cache()
+
+    # (d) the rANS microbenchmark
+    r = bench_rans.run(4_000_000)
+    log(f"[{tag}] bench_rans: n={r['n']} enc {r['enc_msym_s']:.2f} Msym/s, "
+        f"dec {r['dec_msym_s']:.2f} Msym/s ({r['bits_per_sym']:.3f} "
+        f"bits/sym, 16 messages on {r['threads']} host threads)")
+    secs = time.perf_counter() - t_phase
+    log(f"[{tag}] phase 18 {secs:.1f} s [{smi}]")
+    if secs > PHASE18_LIMIT_S:
+        raise AssertionError(f"phase 18 took {secs:.1f} s (limit "
+                             f"{PHASE18_LIMIT_S} s)")
+    return {"eval_checkpoint": n_eval, "eval_cnn": n_cnn,
+            "extended_rem_codec": n_ext}
+
+
 def _timed_steps(step, state, x):
     losses, walls = [], []
     for _ in range(PAR_STEPS):
@@ -2261,6 +2547,9 @@ def main(argv=None) -> int:
                 phase_options(smi, work)
             if only & {"17", "17a"}:
                 phase_parallel(smi, work, sweep_too="17" in only)
+            if "18" in only:
+                phase_images_and_tools(smi, work,
+                                       *_standalone_checkpoints(work))
         log(f"[done] phases {sorted(only)} in "
             f"{time.perf_counter() - t_start:.1f} s")
         return 0
@@ -2281,6 +2570,10 @@ def main(argv=None) -> int:
         launches["wacnn_training"] = cnn_fwd
         launches.update(phase_file_cli(
             work, os.path.join(work, "train", "rems"), cnn_ckpt))
+        # phase 18 runs the repository tools on phases 9 and 11's
+        # checkpoints, which live in this directory
+        launches.update(phase_images_and_tools(
+            smi, work, os.path.join(work, "train", "rems"), cnn_ckpt))
     launches.update(phase_rd_eval())
     c2_fwd, c2_bwd = phase_first_train_vs_jax()
     launches["first_train_vs_jax"] = c2_fwd

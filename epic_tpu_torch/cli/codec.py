@@ -1,8 +1,9 @@
 """File codec: an image file into a standalone ``.epic`` container, and the
 container back into an image file at any progressive level. Flags and
 container layout are the JAX package's ``cli/codec.py``'s, plus
-``--device`` (the GPU unless ``--device cpu``); images are read and written
-by ``data/png.py``.
+``--device`` (the GPU unless ``--device cpu``); images are read by
+``data/images.py`` (JPEG, PNG, BMP, Netpbm, chosen by their first bytes)
+and written as PNG by ``data/png.py``.
 
 - A progressive model (``pic``, ``rem``) is coded once into the
   single-bitstream layout with ``--q_levs``. A ``rem`` model's file also
@@ -108,7 +109,7 @@ def _stream_record(out, quality: float):
 
 def cmd_compress(args):
     from ..codec import dump_bitstreams, progressive_encode
-    from ..data.png import load_image
+    from ..data.images import load_image
     from ..utils.padding import pad_image
 
     codec = _build_codec(args)

@@ -23,7 +23,8 @@ import time
 def main(argv=None):
     from ..codec import (PICCodec, dump_bitstreams, progressive_decode,
                          progressive_encode)
-    from ..data.png import load_image, to_uint8, write_png
+    from ..data.images import load_image
+    from ..data.png import to_uint8, write_png
     from ..training.evaluate import compress_with_ac, extract_checkpoints
     from ..utils.metrics import compute_psnr
     from ..utils.padding import pad_image, unpad_image

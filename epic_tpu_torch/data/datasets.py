@@ -6,9 +6,9 @@ order shuffle, one crop seed per image drawn before the images are
 dispatched to the pool, the reflect pad of images smaller than the patch),
 so that the same files and seed give the same batches bit for bit.
 
-Images are read by ``data/png.py`` (no Pillow): PNG only. A listed
-``.jpg`` / ``.jpeg`` / ``.bmp`` / ``.ppm`` file raises ValueError when it is
-loaded.
+Images are read by ``data/images.py`` (no Pillow): JPEG, PNG, BMP and
+Netpbm files, each chosen by its first bytes and decoded as Pillow's
+``convert("RGB")`` gives it.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from typing import Iterator, List, Optional
 
 import numpy as np
 
-from .png import load_image
+from .images import load_image
 
 _EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".ppm")
 
@@ -35,9 +35,6 @@ def _list_images(root: str) -> List[str]:
 
 def _load_image(path: str) -> np.ndarray:
     """float32 [H, W, 3] in [0, 1] (uint8 / 255)."""
-    if not path.lower().endswith(".png"):
-        raise ValueError(f"{path}: epic_tpu_torch reads PNG files only (no "
-                         f"decoder for {os.path.splitext(path)[1]} files)")
     return load_image(path)
 
 

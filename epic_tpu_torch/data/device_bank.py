@@ -97,13 +97,13 @@ def load_teaser_images(path: str = TEASER_PATH,
                        ) -> Tuple[List[np.ndarray], List[bool]]:
     """(images, has_val): the teaser's photographic regions, the main photo
     at ``scales`` (only its variants carry a validation strip), read with
-    ``data/png.py`` and scaled with ``resize_lanczos``. ``exclude`` drops
+    ``data/images.py`` and scaled with ``resize_lanczos``. ``exclude`` drops
     whole regions by name. Raises if the teaser image is missing."""
-    from .png import read_png
+    from .images import read_image
 
     if not os.path.exists(path):
         raise FileNotFoundError(f"teaser image not found: {path}")
-    im = read_png(path)
+    im = read_image(path)
     images, has_val = [], []
     for name, (y0, y1, x0, x1) in TEASER_REGIONS.items():
         if name in exclude:

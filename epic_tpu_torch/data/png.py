@@ -1,12 +1,14 @@
 """PNG files with the standard library's ``zlib`` and numpy (no Pillow).
 
-The reader takes non-interlaced 8-bit grey, grey + alpha, RGB and RGBA
-files and palette files of bit depth 1, 2, 4 or 8, with any of the five row
-filters, and converts them as Pillow's ``.convert("RGB")`` does: grey is
-repeated over the three channels, alpha (and a palette's ``tRNS``) is
-dropped, and a palette index past the ``PLTE`` entries is black. 16-bit,
-sub-byte grey and interlaced files raise ValueError. The writer writes RGB8
-with filter 0 on every row.
+The reader takes every PNG colour type at every bit depth the format
+allows (grey at 1, 2, 4, 8 and 16 bits; grey + alpha, RGB and RGBA at 8
+and 16; palette at 1, 2, 4 and 8), interlaced (Adam7) or not, with any of
+the five row filters, and converts them as Pillow's ``.convert("RGB")``
+does: grey is repeated over the three channels (1, 2 and 4-bit grey scaled
+by 255, 85 and 17), alpha (and ``tRNS``) is dropped, a palette index past
+the ``PLTE`` entries is black, 16-bit colour keeps the high byte of each
+sample and 16-bit grey is clipped to 255 (Pillow's ``I;16`` -> ``RGB``).
+The writer writes RGB8 with filter 0 on every row.
 """
 
 from __future__ import annotations
@@ -17,8 +19,14 @@ import zlib
 import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# colour type -> channels of an 8-bit pixel
-CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+# colour type -> samples of a pixel
+CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# colour type -> the bit depths the format allows
+DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+          6: (8, 16)}
+# Adam7 passes: (x0, y0, dx, dy)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _chunks(data: bytes):
@@ -79,58 +87,100 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
     return out[skew].astype(np.uint8)
 
 
-def _palette_rgb(raw: bytes, h: int, w: int, depth: int,
-                 palette: bytes) -> np.ndarray:
-    """Filtered palette scanlines -> uint8 [h, w, 3]. Rows of sub-byte
-    indices are filtered bytewise (a left neighbour one byte back), each
-    byte holding 8 / depth indices, the first in its top bits."""
-    stride = (w * depth + 7) // 8
-    rows = _unfilter(raw, h, stride, 1)[..., 0]
-    if depth < 8:
-        bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)
-        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
-        rows = (bits * weights).sum(axis=2, dtype=np.uint8)
+def _sub_byte(rows: np.ndarray, w: int, depth: int) -> np.ndarray:
+    """[h, stride] bytes of ``depth``-bit samples, the first in the top
+    bits of its byte -> [h, w] values."""
+    h = rows.shape[0]
+    bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(axis=2, dtype=np.uint8)[:, :w]
+
+
+def _palette_table(palette: bytes) -> np.ndarray:
     n = min(len(palette) // 3, 256)
     table = np.zeros((256, 3), np.uint8)
     table[:n] = np.frombuffer(palette, np.uint8, 3 * n).reshape(n, 3)
-    return table[rows[:, :w]]
+    return table
+
+
+def _image_rgb(raw, h: int, w: int, depth: int, colour: int,
+               palette) -> np.ndarray:
+    """Filtered scanlines of one (sub-)image -> uint8 [h, w, 3]."""
+    ch = CHANNELS[colour]
+    if depth < 8:  # rows are filtered bytewise
+        stride = (w * depth + 7) // 8
+        idx = _sub_byte(_unfilter(raw, h, stride, 1)[..., 0], w, depth)
+        if colour == 3:
+            return _palette_table(palette)[idx]
+        grey = idx * np.uint8(255 // ((1 << depth) - 1))
+        return np.repeat(grey[..., None], 3, axis=-1)
+    if depth == 8:
+        px = _unfilter(raw, h, w, ch)
+        if colour == 3:
+            return _palette_table(palette)[px[..., 0]]
+        if ch <= 2:  # grey (+ alpha)
+            return np.repeat(px[..., :1], 3, axis=-1)
+        return np.ascontiguousarray(px[..., :3])
+    px = _unfilter(raw, h, w, 2 * ch)  # 16 bits, big-endian samples
+    high = px[..., 0::2]
+    if colour == 0:  # Pillow's I;16 -> RGB clips at 255
+        v = (high.astype(np.uint16) << 8) | px[..., 1::2]
+        grey = np.minimum(v[..., 0], 255).astype(np.uint8)
+        return np.repeat(grey[..., None], 3, axis=-1)
+    if ch <= 2:
+        return np.repeat(high[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(high[..., :3])
+
+
+def _scanline_bytes(h: int, w: int, depth: int, colour: int) -> int:
+    return h * ((w * depth * CHANNELS[colour] + 7) // 8 + 1)
 
 
 def read_png(path: str) -> np.ndarray:
-    """A PNG file -> uint8 [H, W, 3] RGB (grey repeated, alpha dropped,
-    palette indices looked up)."""
+    """A PNG file -> uint8 [H, W, 3] RGB as Pillow's ``convert("RGB")``
+    gives it."""
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
     header, idat, palette = None, [], None
-    for kind, body in _chunks(data):
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"PLTE":
-            palette = body
+    try:
+        for kind, body in _chunks(data):
+            if kind == b"IHDR":
+                header = struct.unpack(">IIBBBBB", body)
+            elif kind == b"IDAT":
+                idat.append(body)
+            elif kind == b"PLTE":
+                palette = body
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, colour, _, _, interlace = header
-    if interlace:
-        raise ValueError(f"{path}: interlaced PNG files are not supported")
-    if colour == 3:
-        if depth not in (1, 2, 4, 8) or palette is None:
-            raise ValueError(f"{path}: palette PNG of bit depth {depth}"
-                             + ("" if palette else " without PLTE"))
-        return _palette_rgb(zlib.decompress(b"".join(idat)), h, w, depth,
-                            palette)
-    if depth != 8 or colour not in CHANNELS:
-        raise ValueError(f"{path}: only 8-bit grey, grey+alpha, RGB, RGBA "
-                         f"and palette PNG files are supported (bit depth "
-                         f"{depth}, colour type {colour})")
-    ch = CHANNELS[colour]
-    px = _unfilter(zlib.decompress(b"".join(idat)), h, w, ch)
-    if ch <= 2:  # grey (+ alpha)
-        return np.repeat(px[..., :1], 3, axis=-1)
-    return np.ascontiguousarray(px[..., :3])
+    if depth not in DEPTHS.get(colour, ()):
+        raise ValueError(f"{path}: PNG of bit depth {depth} and colour type "
+                         f"{colour} is not a valid PNG")
+    if colour == 3 and palette is None:
+        raise ValueError(f"{path}: palette PNG of bit depth {depth} "
+                         f"without PLTE")
+    if interlace > 1:
+        raise ValueError(f"{path}: unknown PNG interlace method {interlace}")
+    raw = memoryview(zlib.decompress(b"".join(idat)))
+    try:
+        if not interlace:
+            return _image_rgb(raw, h, w, depth, colour, palette)
+        out = np.zeros((h, w, 3), np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw <= 0 or ph <= 0:  # an empty pass has no scanlines
+                continue
+            out[y0::dy, x0::dx] = _image_rgb(raw[pos:], ph, pw, depth,
+                                             colour, palette)
+            pos += _scanline_bytes(ph, pw, depth, colour)
+        return out
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
 
 
 def write_png(path: str, rgb: np.ndarray) -> None:
@@ -155,7 +205,8 @@ def write_png(path: str, rgb: np.ndarray) -> None:
 
 def load_image(path: str) -> np.ndarray:
     """A PNG file -> float32 [H, W, 3] in [0, 1] (uint8 / 255), as the JAX
-    package's ``data.datasets._load_image`` reads an image."""
+    package's ``data.datasets._load_image`` reads an image. Files of any
+    format go through ``data/images.load_image``."""
     return read_png(path).astype(np.float32) / np.float32(255.0)
 
 

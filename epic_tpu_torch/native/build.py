@@ -1,9 +1,11 @@
-"""Build and load the host rANS library (``epic_rans.cpp``).
+"""Build and load the host libraries: the rANS coder (``epic_rans.cpp``)
+and the JPEG decoder (``epic_jpeg.cpp``).
 
-The source is compiled with g++ on first use into ``native/_build/`` (listed
-in ``.gitignore``), under a name keyed by a hash of the source text so an
-edit triggers a rebuild. The library has a plain C interface, bound with
-ctypes.
+Each source is compiled with g++ on first use into ``native/_build/``
+(listed in ``.gitignore``), under a name keyed by a hash of the source text
+so an edit triggers a rebuild. The libraries have plain C interfaces, bound
+with ctypes. The JPEG decoder is built without ``-march=native``: its
+integer arithmetic gives the same bytes on any x86-64 host.
 """
 
 from __future__ import annotations
@@ -14,31 +16,50 @@ import os
 import subprocess
 import threading
 
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "epic_rans.cpp")
-_BUILD_DIR = os.path.join(os.path.dirname(_SRC), "_build")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SRC = os.path.join(_HERE, "epic_rans.cpp")
+_JPEG_SRC = os.path.join(_HERE, "epic_jpeg.cpp")
+_BUILD_DIR = os.path.join(_HERE, "_build")
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
+_JPEG_LIB: ctypes.CDLL | None = None
 
 
-def library_path() -> str:
-    with open(_SRC, "rb") as f:
+def _library_path(src: str, stem: str) -> str:
+    with open(src, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(_BUILD_DIR, f"libepic_rans_{digest}.so")
+    return os.path.join(_BUILD_DIR, f"lib{stem}_{digest}.so")
 
 
-def build_library() -> str:
-    """Compile the library if it is not built yet; returns its path."""
-    path = library_path()
+def _compile(src: str, path: str, flags) -> str:
     if not os.path.exists(path):
         os.makedirs(_BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
-               "-march=native", "-pthread", _SRC, "-o", tmp]
+        cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", *flags, src,
+               "-o", tmp]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"g++ failed:\n{proc.stderr}")
         os.replace(tmp, path)
     return path
+
+
+def library_path() -> str:
+    return _library_path(_SRC, "epic_rans")
+
+
+def build_library() -> str:
+    """Compile the rANS library if it is not built yet; returns its path."""
+    return _compile(_SRC, library_path(), ["-march=native", "-pthread"])
+
+
+def jpeg_library_path() -> str:
+    return _library_path(_JPEG_SRC, "epic_jpeg")
+
+
+def build_jpeg_library() -> str:
+    """Compile the JPEG decoder if it is not built yet; returns its path."""
+    return _compile(_JPEG_SRC, jpeg_library_path(), [])
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -98,6 +119,25 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.restype = restype
         fn.argtypes = argtypes
+
+
+def load_jpeg_library() -> ctypes.CDLL:
+    global _JPEG_LIB
+    if _JPEG_LIB is None:
+        with _LOCK:
+            if _JPEG_LIB is None:
+                lib = ctypes.CDLL(build_jpeg_library())
+                c = ctypes
+                lib.epic_jpeg_info.restype = c.c_int32
+                lib.epic_jpeg_info.argtypes = [
+                    c.c_char_p, c.c_int64, c.POINTER(c.c_int32), c.c_char_p,
+                    c.c_int32]
+                lib.epic_jpeg_decode.restype = c.c_int32
+                lib.epic_jpeg_decode.argtypes = [
+                    c.c_char_p, c.c_int64, c.c_void_p, c.c_int64, c.c_char_p,
+                    c.c_int32]
+                _JPEG_LIB = lib
+    return _JPEG_LIB
 
 
 def load_library() -> ctypes.CDLL:

@@ -4,7 +4,8 @@ JAX package, on the CPU.
 - ``data/png.py`` against Pillow: RGB, RGBA, L and LA files that Pillow
   writes, and files whose rows use each of the five filter types, read to
   equal pixels (``.convert("RGB")``); the writer's file read back equal by
-  both; palette and 16-bit files refused.
+  both; palette, 1-bit and 16-bit grey files read as Pillow reads them, an
+  invalid bit depth refused.
 - ``resize_lanczos`` equal to Pillow's ``resize(..., LANCZOS)``, which the
   teaser loader used.
 - ``cli.codec`` on a tiny ``rem`` and a tiny ``cnn`` checkpoint directory
@@ -138,19 +139,23 @@ def test_png_writer_round_trip_and_refusals(tmp_path):
     with Image.open(tmp_path / "w.png") as im:
         assert im.mode == "RGB"
         np.testing.assert_array_equal(np.asarray(im), px)
-    # palette files are read as Pillow's convert("RGB") gives them;
-    # 1-bit grey (like 16-bit below) is refused
+    # palette, 1-bit grey and 16-bit grey files are read as Pillow's
+    # convert("RGB") gives them; a bit depth the format does not allow
+    # is refused
     Image.fromarray(px).convert("P").save(tmp_path / "p.png")
-    with Image.open(tmp_path / "p.png") as im:
-        np.testing.assert_array_equal(read_png(str(tmp_path / "p.png")),
-                                      np.asarray(im.convert("RGB")))
     Image.fromarray(px[..., 0] > 128).save(tmp_path / "b1.png")
-    with pytest.raises(ValueError, match="bit depth 1"):
-        read_png(str(tmp_path / "b1.png"))
-    Image.fromarray((px[..., 0].astype(np.uint16) * 257)).save(
+    Image.fromarray((px[..., 0].astype(np.uint16) * 3)).save(
         tmp_path / "g16.png")
-    with pytest.raises(ValueError, match="bit depth 16"):
-        read_png(str(tmp_path / "g16.png"))
+    for name in ("p.png", "b1.png", "g16.png"):
+        with Image.open(tmp_path / name) as im:
+            np.testing.assert_array_equal(read_png(str(tmp_path / name)),
+                                          np.asarray(im.convert("RGB")))
+    bad = bytearray((tmp_path / "w.png").read_bytes())
+    bad[24] = 4  # IHDR bit depth 4 with colour type 2 (RGB)
+    bad[29:33] = struct.pack(">I", zlib.crc32(bytes(bad[12:29])))
+    (tmp_path / "bad.png").write_bytes(bytes(bad))
+    with pytest.raises(ValueError, match="bit depth 4"):
+        read_png(str(tmp_path / "bad.png"))
     big = np.stack([_photo(120, 150, s)[..., 0] for s in range(3)], -1)
     for s in (0.75, 0.5):
         w, h = int(150 * s), int(120 * s)

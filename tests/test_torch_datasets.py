@@ -13,9 +13,10 @@ package's, on the CPU, with no JAX program compiled.
   tool.
 - ``read_png`` of palette PNGs (bit depths 1 / 2 / 4 / 8, a palette
   shorter than the indices) equal to Pillow's ``convert("RGB")``; a listed
-  ``.jpg`` raises with the file's name.
+  ``.jpg`` whose coding the reader refuses raises with the file's name.
 """
 
+import io
 import json
 import os
 import struct
@@ -264,9 +265,17 @@ def test_palette_png_matches_pillow(tmp_path, depth):
 
 
 def test_jpeg_raises_with_its_name(tmp_path):
-    Image.fromarray(np.full((64, 64, 3), 90, np.uint8)).save(
-        tmp_path / "photo.jpg")
+    """A JPEG whose coding the reader refuses (arithmetic) raises with the
+    file's name from inside the loader; a Huffman-coded one loads."""
+    buf = io.BytesIO()
+    Image.fromarray(np.full((64, 64, 3), 90, np.uint8)).save(buf, "JPEG")
+    data = buf.getvalue()
+    sof = data.index(b"\xff\xc0")
+    (tmp_path / "photo.jpg").write_bytes(data[:sof + 1] + b"\xc9"
+                                         + data[sof + 2:])
     ds = ImageFolder(str(tmp_path), "train", 32)
     assert [os.path.basename(p) for p in ds.paths] == ["photo.jpg"]
-    with pytest.raises(ValueError, match=r"photo\.jpg.*no decoder"):
+    with pytest.raises(ValueError, match=r"photo\.jpg.*arithmetic coding"):
         next(data_loader(ds, 1, steps=1))
+    (tmp_path / "photo.jpg").write_bytes(data)
+    assert next(data_loader(ds, 1, steps=1)).shape == (1, 32, 32, 3)
