@@ -162,17 +162,36 @@ Phases, one progress line each (flush=True):
     checkpoint latents; ``tools.bench_rans`` at 4,000,000 symbols. Within
     150 s.
 
+19. the JAX trainer's checkpoints: the committed Orbax directory
+    ``tests/fixtures/orbax/flagship_tiled`` (the flagship ``rem`` model's
+    609 arrays, 623.3 MiB of float32, each its own first 1,021 trained
+    values tiled, written by the JAX package's ``save_checkpoint``) read
+    by ``training/orbax.read_orbax`` (OCDBT, zarr, the zstd decoder of
+    ``native/epic_zstd.cpp``): every array's SHA-256 equal to the JAX
+    package's ``load_checkpoint`` of it
+    (``tests/fixtures/orbax/flagship_tiled.json``); the read, the load and
+    the zstd decode (MB/s, one thread) timed, the decode both on the
+    fixture's chunks (tiled, mostly match copies) and on
+    ``tests/fixtures/orbax/normals_f32.zst`` (4 MiB of seeded float32
+    normals, few matches, as in trained weights; its SHA-256 checked); then
+    phase 5's serial sweep with the loaded model (encode with REMs, levels
+    0..15, ``decode_all``) on the 768x512 image, every level bitwise the
+    encoder's, launches equal to phase 5's; then
+    ``tools.make_artifact`` on the directory, its bf16 npz reloaded: every
+    array the bf16 cast of the fixture's, the dead rows zero. Within 150 s.
+
 ``python3 chip_smoke.py --phases 16,17`` runs the environment, the build
 and the listed phases only (and prints no kernels record); ``--phases 18``
 runs phase 18 on random-weight stand-ins of phases 9 and 11's
-checkpoints.
+checkpoints; ``--phases 19`` needs nothing else.
 
 Each path's kernel launches are counted from zero and must match its count
 (GDN 6 per encode or ``compress``; IGDN 3 per decoded level, 48 for
 levels 0..15, 9 per ``decode_all``, 3 per ``decompress``; 15 per pipelined
 sweep of 4 images; WACNN 3 GDN per ``compress`` and 3 IGDN per
 ``decompress``; the training launches in phases 9, 11, 14 and 15; the file
-CLI and RD evaluation in phases 12-13, the tools in phase 18; phase 16's interleaved codec as the
+CLI and RD evaluation in phases 12-13, the tools in phase 18, phase 19's
+sweep as phase 5's; phase 16's interleaved codec as the
 all_scalable one (6 GDN per ``compress``, 3 IGDN per ``decompress``) and
 its ``cli.train`` steps as phase 15's; phase 17's steps, each rank's
 counted in its process, and the sweep's 6 GDN + 9 IGDN per image; no
@@ -1556,6 +1575,39 @@ HOST_RUNS = {"first_train": {"epochs": 2, "steps": 3},
 COMMITTED_FLAGSHIP_BYTES = 250_480_975  # artifacts/ckpt_r5_flagship/last.npz
 
 
+def _check_artifact(ck_model, model) -> tuple:
+    """Every array of the artifact's ``model`` the bf16 cast of the
+    checkpoint's ``ck_model``, the stacked heads' dead rows zero; returns
+    (dead-row entries, those of them nonzero in the checkpoint)."""
+    from epic_tpu_torch.convert import _flatten, _stacked_dead_blocks
+    from epic_tpu_torch.convert import to_jax_params
+    from epic_tpu_torch.training.checkpoint import zero_dead_rows
+
+    got = dict(_flatten(to_jax_params(model)))
+    ck_tree = to_jax_params(ck_model)
+    tree = zero_dead_rows(ck_tree, ck_model)
+    for path, v in _flatten(tree):
+        want = torch.from_numpy(v).to(torch.bfloat16).float().numpy()
+        if not np.array_equal(got[path], want):
+            raise AssertionError(f"artifact {'/'.join(path)} is not the "
+                                 "bf16 cast of the checkpoint's")
+    dead = live = 0
+    for name, count, slots in _stacked_dead_blocks(model):
+        if (name, "Conv_0_kernel") not in got:
+            continue
+        a = got[(name, "Conv_0_kernel")]
+        b = ck_tree[name]["Conv_0_kernel"]
+        for i in range(count):
+            pos, pad = slots(i)
+            rows = (slice(i, i + 1), slice(None), slice(None),
+                    slice(pos, pos + pad))
+            if np.any(a[rows]):
+                raise AssertionError(f"{name} slice {i}: dead rows not zero")
+            dead += a[rows].size
+            live += int(np.count_nonzero(b[rows]))
+    return dead, live
+
+
 def _write_palette_png(path: str, rgb: np.ndarray) -> np.ndarray:
     """rgb quantised to a 6 x 7 x 6 palette (252 entries) and written as an
     8-bit palette PNG (filter 0); returns the RGB image the file holds."""
@@ -1655,13 +1707,10 @@ def phase_host_trainer(smi: str, work: str):
     Returns (forward, backward) launches."""
     import epic_tpu_torch as et
     from epic_tpu_torch.cli import train as cli_train
-    from epic_tpu_torch.convert import _flatten, _stacked_dead_blocks
-    from epic_tpu_torch.convert import to_jax_params
     from epic_tpu_torch.ops.gdn_kernel import gdn, gdn_backward
     from epic_tpu_torch.tools import make_artifact
     from epic_tpu_torch.tools.workload import images
     from epic_tpu_torch.training import step as step_mod
-    from epic_tpu_torch.training.checkpoint import zero_dead_rows
 
     t_phase = time.perf_counter()
     root = os.path.join(work, "host")
@@ -1774,28 +1823,7 @@ def phase_host_trainer(smi: str, work: str):
     model, cfg, step = et.load_checkpoint(art)
     if cfg["model"] != "rem" or step != rec["step"]:
         raise AssertionError(f"artifact config {cfg['model']} step {step}")
-    got = dict(_flatten(to_jax_params(model)))
-    ck_tree = to_jax_params(ck_model)
-    tree = zero_dead_rows(ck_tree, ck_model)
-    for path, v in _flatten(tree):
-        want = torch.from_numpy(v).to(torch.bfloat16).float().numpy()
-        if not np.array_equal(got[path], want):
-            raise AssertionError(f"artifact {'/'.join(path)} is not the "
-                                 "bf16 cast of the checkpoint's")
-    dead = live = 0
-    for name, count, slots in _stacked_dead_blocks(model):
-        if (name, "Conv_0_kernel") not in got:
-            continue
-        a = got[(name, "Conv_0_kernel")]
-        b = ck_tree[name]["Conv_0_kernel"]
-        for i in range(count):
-            pos, pad = slots(i)
-            rows = (slice(i, i + 1), slice(None), slice(None),
-                    slice(pos, pos + pad))
-            if np.any(a[rows]):
-                raise AssertionError(f"{name} slice {i}: dead rows not zero")
-            dead += a[rows].size
-            live += int(np.count_nonzero(b[rows]))
+    dead, live = _check_artifact(ck_model, model)
     log(f"[15 host trainer] artifact {nbytes} bytes (float32 checkpoint "
         f"{f32_bytes}; the committed trained flagship "
         f"{COMMITTED_FLAGSHIP_BYTES}) in {art_s:.1f} s (load + bf16 + zlib "
@@ -1809,7 +1837,7 @@ def phase_host_trainer(smi: str, work: str):
     _check_levels("15 host trainer", codec, x, bs, state, outs)
     _add(total_f, n["encode"])
     _add(total_f, n["decode"])
-    del codec, model, ck_model, ck_tree, tree, got
+    del codec, model, ck_model
     torch.cuda.empty_cache()
     secs = time.perf_counter() - t_phase
     log(f"[15 host trainer] phase {secs:.1f} s")
@@ -2509,6 +2537,118 @@ def phase_images_and_tools(smi: str, work: str, rems_ckpt: str,
             "extended_rem_codec": n_ext}
 
 
+# phase 19: the committed Orbax checkpoint (tests/gen_torch_orbax_fixture.py)
+ORBAX_FIXTURE = os.path.join("tests", "fixtures", "orbax", "flagship_tiled")
+ORBAX_DIGESTS = ORBAX_FIXTURE + ".json"
+PHASE19_LIMIT_S = 150
+NORMALS_REPEATS = 5
+
+
+def phase_orbax_checkpoint(smi: str, work: str) -> dict:
+    import epic_tpu_torch as et
+    from epic_tpu_torch.convert import _flatten
+    from epic_tpu_torch.native import zstd
+    from epic_tpu_torch.tools import make_artifact
+    from epic_tpu_torch.tools.workload import images
+    from epic_tpu_torch.training.ocdbt import read_ocdbt
+    from epic_tpu_torch.training.orbax import read_orbax
+
+    tag = "19 orbax"
+    t_phase = time.perf_counter()
+    last = os.path.join(ORBAX_FIXTURE, "last")
+    with open(ORBAX_DIGESTS) as f:
+        want = json.load(f)
+    # (a) the zstd decoder alone, one thread, on the store's chunks
+    kv = read_ocdbt(last)
+    frames = [v for k, v in kv.items() if not k.endswith("/.zarray")]
+    zstd.decompress(frames[0])  # builds the library
+    t = time.perf_counter()
+    out_bytes = sum(len(zstd.decompress(v)) for v in frames)
+    z_s = time.perf_counter() - t
+    in_bytes = sum(len(v) for v in frames)
+    nrec = want["zstd_normals"]
+    with open(nrec["file"], "rb") as f:
+        normals = f.read()
+    n_walls = []
+    for _ in range(NORMALS_REPEATS):
+        t = time.perf_counter()
+        raw = zstd.decompress(normals)
+        n_walls.append(time.perf_counter() - t)
+    if hashlib.sha256(raw).hexdigest() != nrec["sha256"]:
+        raise AssertionError(f"{nrec['file']}: not the seeded normals")
+    n_s = float(np.median(n_walls))
+    del raw
+    # (b) the read and every array's SHA-256 against the JAX package's
+    t = time.perf_counter()
+    tree = read_orbax(last)
+    read_s = time.perf_counter() - t
+    flat = {"/".join(p): np.asarray(a) for p, a in _flatten(tree)}
+    if len(flat) != want["n_arrays"] or set(flat) != set(want["arrays"]):
+        raise AssertionError(f"{len(flat)} arrays read, the fixture has "
+                             f"{want['n_arrays']}")
+    for k, a in flat.items():
+        w = want["arrays"][k]
+        if (list(a.shape) != w["shape"] or str(a.dtype) != w["dtype"]
+                or hashlib.sha256(a.tobytes()).hexdigest() != w["sha256"]):
+            raise AssertionError(f"{k}: not the JAX package's array")
+    nbytes = sum(a.nbytes for a in flat.values())
+    del flat, tree, kv, frames
+    t = time.perf_counter()
+    model, cfg, step = et.load_checkpoint(ORBAX_FIXTURE)
+    load_s = time.perf_counter() - t
+    log(f"[{tag}] zstd, one thread: {out_bytes} B from "
+        f"{in_bytes} B in {z_s:.3f} s, {out_bytes / z_s / 1e6:.1f} MB/s "
+        f"(tiled weights); {nrec['bytes']} B from {len(normals)} B in "
+        f"{n_s:.4f} s, {nrec['bytes'] / n_s / 1e6:.1f} MB/s (seeded float32 "
+        f"normals, median of {NORMALS_REPEATS}, SHA-256 checked); read_orbax "
+        f"{read_s:.3f} s for {want['n_arrays']} arrays, {nbytes} B, every "
+        f"SHA-256 the JAX package's; load_checkpoint {load_s:.3f} s "
+        f"({cfg['model']}, step {step}) [{smi}]")
+    if cfg["model"] != "rem":
+        raise AssertionError(f"loaded a {cfg['model']} model")
+    # (c) phase 5's serial sweep with the loaded weights
+    codec = et.PICCodec(model, device="cuda")
+    x, warm = images()
+    _warm_up(codec, warm, True)
+    bs, state, outs, launches = _encode_and_decode_levels(tag, codec, x,
+                                                          True)
+    t = time.perf_counter()
+    out, n = _counted(lambda: et.progressive_decode_all(
+        codec, bs, True, state["auto_ckpts"]))
+    log(f"[{tag}] decode_all {time.perf_counter() - t:.3f} s")
+    _expect(tag, "decode_all", n, {"gdn": 0, "igdn": 9})
+    launches["decode_all"] = n
+    _check_levels(tag, codec, x, bs, state, outs)
+    diff = max(float((out["x_hat"][lvl] - outs[lvl][0]).abs().max())
+               for lvl in range(len(outs)))
+    if not diff <= DECODE_ALL_ATOL:
+        raise AssertionError(f"decode_all differs by {diff}")
+    log(f"[{tag}] every level bitwise the encoder's; decode_all within "
+        f"{diff:.3e}")
+    del codec, out, outs, state, bs
+    torch.cuda.empty_cache()
+    # (d) the bf16 artifact of the JAX trainer's checkpoint
+    art = os.path.join(work, "orbax_artifact")
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rec = make_artifact.main([ORBAX_FIXTURE, art])
+    art_s = time.perf_counter() - t
+    art_model, art_cfg, art_step = et.load_checkpoint(art)
+    if art_cfg["model"] != "rem" or art_step != step:
+        raise AssertionError(f"artifact {art_cfg['model']} step {art_step}")
+    dead, live = _check_artifact(model, art_model)
+    secs = time.perf_counter() - t_phase
+    log(f"[{tag}] make_artifact {art_s:.1f} s: {rec['out']} "
+        f"{os.path.getsize(rec['out'])} B, every array the bf16 cast of the "
+        f"fixture's, {dead} dead-row entries zero ({live} nonzero in the "
+        f"fixture); phase {secs:.1f} s [{smi}]")
+    if secs > PHASE19_LIMIT_S:
+        raise AssertionError(f"phase 19 took {secs:.1f} s (limit "
+                             f"{PHASE19_LIMIT_S} s)")
+    return {f"orbax_{k}": v for k, v in launches.items()}
+
+
 def _timed_steps(step, state, x):
     losses, walls = [], []
     for _ in range(PAR_STEPS):
@@ -2550,6 +2690,8 @@ def main(argv=None) -> int:
             if "18" in only:
                 phase_images_and_tools(smi, work,
                                        *_standalone_checkpoints(work))
+            if "19" in only:
+                phase_orbax_checkpoint(smi, work)
         log(f"[done] phases {sorted(only)} in "
             f"{time.perf_counter() - t_start:.1f} s")
         return 0
@@ -2575,6 +2717,8 @@ def main(argv=None) -> int:
         launches.update(phase_images_and_tools(
             smi, work, os.path.join(work, "train", "rems"), cnn_ckpt))
     launches.update(phase_rd_eval())
+    with tempfile.TemporaryDirectory() as work:
+        launches.update(phase_orbax_checkpoint(smi, work))
     c2_fwd, c2_bwd = phase_first_train_vs_jax()
     launches["first_train_vs_jax"] = c2_fwd
     with tempfile.TemporaryDirectory() as work:

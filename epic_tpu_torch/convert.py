@@ -233,6 +233,20 @@ def _model_from_config(config: Dict[str, Any]):
     return get_model(config.get("model", "pic"), **cfg)
 
 
+def checkpoint_source(directory: str, which: str):
+    """Where checkpoint ``which`` of ``directory`` lives, in the JAX
+    package's precedence: ``("npz", {which}.npz)``, else ``("orbax",
+    {which}/)`` for the Orbax directory the JAX trainer writes (it holds
+    ``_METADATA``), else ``(None, None)``."""
+    npz = os.path.join(directory, which + ".npz")
+    if os.path.isfile(npz):
+        return "npz", npz
+    orbax_dir = os.path.join(directory, which)
+    if os.path.isfile(os.path.join(orbax_dir, "_METADATA")):
+        return "orbax", orbax_dir
+    return None, None
+
+
 def load_checkpoint(directory: str, which: str = "last",
                     config_overrides: Optional[Dict[str, Any]] = None,
                     disable_rems_if_missing: bool = True, seed: int = 0):
@@ -240,8 +254,11 @@ def load_checkpoint(directory: str, which: str = "last",
     ``config.json`` (with ``config_overrides`` applied, e.g.
     ``{"compute_dtype": "float32"}``) on the CPU, with every array of
     ``{which}.npz`` ("last" or "best") loaded, as the JAX package's
-    ``load_checkpoint`` reads it. The per-slice layout of older checkpoints
-    is stacked first (``stack_legacy_param_nets``).
+    ``load_checkpoint`` reads it. Without that file, the Orbax directory
+    ``{which}/`` that the JAX trainer writes is read
+    (``training.orbax.read_orbax``; see ``checkpoint_source``). The
+    per-slice layout of older checkpoints is stacked first
+    (``stack_legacy_param_nets``).
 
     A ``rem`` config whose checkpoint has no REM banks (a ``pic``
     checkpoint loaded with the REM overrides) loads as the plain ``pic``
@@ -257,8 +274,19 @@ def load_checkpoint(directory: str, which: str = "last",
     config = dict(meta["config"])
     config.update(config_overrides or {})
     config.setdefault("model", "pic")
-    with np.load(os.path.join(directory, which + ".npz")) as z:
-        params = _unflatten({k: z[k] for k in z.files})
+    kind, path = checkpoint_source(directory, which)
+    if kind == "npz":
+        with np.load(path) as z:
+            params = _unflatten({k: z[k] for k in z.files})
+    elif kind == "orbax":
+        from .training.orbax import read_orbax
+
+        params = read_orbax(path)
+    else:
+        raise FileNotFoundError(
+            f"no checkpoint {which!r} in {directory}: neither "
+            f"{os.path.join(directory, which + '.npz')} nor an Orbax "
+            f"directory {os.path.join(directory, which, '_METADATA')}")
     model = _model_from_config(config)
     if "cc_mean_0" in params or "post_latent_0_0" in params:
         params = stack_legacy_param_nets(params, model)

@@ -4,11 +4,11 @@ built with g++ at first use, bound with ctypes; no Pillow, no libjpeg).
 ``read_jpeg`` gives what Pillow's ``Image.open(path).convert("RGB")`` gives
 on a Pillow built on libjpeg-turbo, bit for bit: baseline, extended and
 progressive Huffman files, any sampling, restart markers, grey, YCbCr, RGB,
-and Adobe CMYK / YCCK. Arithmetic coding, lossless and hierarchical frames,
-12-bit samples, Motion-JPEG files without Huffman tables, truncated data and
-progressive files that stop before their low-frequency coefficients are
-complete (libjpeg-turbo smooths those) raise ValueError naming the file and
-the feature. The one call into C releases the GIL, so a thread pool decodes
+and Adobe CMYK / YCCK; Motion-JPEG files without Huffman tables (the
+standard tables apply) and progressive files that stop before their
+low-frequency coefficients are complete (block-smoothed as libjpeg-turbo
+does). Arithmetic coding, lossless and hierarchical frames, 12-bit samples
+and truncated data raise ValueError naming the file and the feature. The one call into C releases the GIL, so a thread pool decodes
 in parallel.
 """
 

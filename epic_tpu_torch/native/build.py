@@ -1,11 +1,13 @@
-"""Build and load the host libraries: the rANS coder (``epic_rans.cpp``)
-and the JPEG decoder (``epic_jpeg.cpp``).
+"""Build and load the host libraries: the rANS coder (``epic_rans.cpp``),
+the JPEG decoder (``epic_jpeg.cpp``) and the zstd decoder
+(``epic_zstd.cpp``).
 
 Each source is compiled with g++ on first use into ``native/_build/``
 (listed in ``.gitignore``), under a name keyed by a hash of the source text
 so an edit triggers a rebuild. The libraries have plain C interfaces, bound
-with ctypes. The JPEG decoder is built without ``-march=native``: its
-integer arithmetic gives the same bytes on any x86-64 host.
+with ctypes (``ctypes.CDLL``, which releases the GIL for each call). The
+JPEG and zstd decoders are built without ``-march=native``: their integer
+arithmetic gives the same bytes on any x86-64 host.
 """
 
 from __future__ import annotations
@@ -19,10 +21,12 @@ import threading
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "epic_rans.cpp")
 _JPEG_SRC = os.path.join(_HERE, "epic_jpeg.cpp")
+_ZSTD_SRC = os.path.join(_HERE, "epic_zstd.cpp")
 _BUILD_DIR = os.path.join(_HERE, "_build")
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 _JPEG_LIB: ctypes.CDLL | None = None
+_ZSTD_LIB: ctypes.CDLL | None = None
 
 
 def _library_path(src: str, stem: str) -> str:
@@ -60,6 +64,15 @@ def jpeg_library_path() -> str:
 def build_jpeg_library() -> str:
     """Compile the JPEG decoder if it is not built yet; returns its path."""
     return _compile(_JPEG_SRC, jpeg_library_path(), [])
+
+
+def zstd_library_path() -> str:
+    return _library_path(_ZSTD_SRC, "epic_zstd")
+
+
+def build_zstd_library() -> str:
+    """Compile the zstd decoder if it is not built yet; returns its path."""
+    return _compile(_ZSTD_SRC, zstd_library_path(), [])
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -138,6 +151,28 @@ def load_jpeg_library() -> ctypes.CDLL:
                     c.c_int32]
                 _JPEG_LIB = lib
     return _JPEG_LIB
+
+
+def load_zstd_library() -> ctypes.CDLL:
+    global _ZSTD_LIB
+    if _ZSTD_LIB is None:
+        with _LOCK:
+            if _ZSTD_LIB is None:
+                lib = ctypes.CDLL(build_zstd_library())
+                c = ctypes
+                i64p = c.POINTER(c.c_int64)
+                lib.epic_zstd_decode_into.restype = c.c_int32
+                lib.epic_zstd_decode_into.argtypes = [
+                    c.c_char_p, c.c_int64, c.c_void_p, c.c_int64, i64p,
+                    c.c_char_p, c.c_int32]
+                lib.epic_zstd_decode.restype = c.c_int32
+                lib.epic_zstd_decode.argtypes = [
+                    c.c_char_p, c.c_int64, c.POINTER(c.c_void_p), i64p,
+                    c.c_char_p, c.c_int32]
+                lib.epic_zstd_free.restype = None
+                lib.epic_zstd_free.argtypes = [c.c_void_p]
+                _ZSTD_LIB = lib
+    return _ZSTD_LIB
 
 
 def load_library() -> ctypes.CDLL:

@@ -8,10 +8,14 @@
 //   - markers: SOI, APPn (JFIF and Adobe read, the rest skipped), COM, DQT
 //     (8- and 16-bit tables), SOF0 / SOF1 / SOF2, DHT, DRI with RSTn, SOS,
 //     EOI; quantisation tables latched at a component's first scan
-//     (jdinput.c);
+//     (jdinput.c); the standard Huffman tables (jstdhuff.c) in slots 0 and
+//     1 that no DHT segment defined by the first scan;
 //   - Huffman entropy decoding, sequential (jdhuff.c) and progressive
 //     (jdphuff.c: DC first / refine, AC first / refine, EOB runs),
 //     coefficients kept as 16-bit JCOEFs;
+//   - block smoothing of progressive files whose scans leave some of the
+//     first nine AC coefficients incomplete (jdcoefct.c
+//     decompress_smooth_data, libjpeg-turbo 3.1's 5x5 DC window);
 //   - dequantisation and the islow IDCT of jidctint.c with its range-limit
 //     table (jdmaster.c);
 //   - upsampling of jdsample.c: the "fancy" triangle filters h2v1, h2v2
@@ -23,9 +27,7 @@
 //     converted by Pillow's cmyk2rgb.
 // Refused with an error naming the feature: arithmetic coding, lossless
 // and hierarchical frames, sample precision other than 8 bits, 2-component
-// frames, data that ends before EOI, and progressive files whose scans leave
-// low-frequency coefficients incomplete (libjpeg-turbo would smooth those
-// blocks, jdcoefct.c, which this decoder does not do).
+// frames and data that ends before EOI.
 
 #include <algorithm>
 #include <cstdint>
@@ -121,6 +123,49 @@ struct HuffTable {
     defined = true;
   }
 };
+
+// jstdhuff.c: the standard tables of the JPEG standard's Annex K.3, which
+// libjpeg-turbo installs in slots 0 (luminance) and 1 (chrominance) that no
+// DHT segment has defined by the first scan (Motion JPEG omits them)
+const uint8_t kStdDcLumBits[16] = {0, 1, 5, 1, 1, 1, 1, 1,
+                                   1, 0, 0, 0, 0, 0, 0, 0};
+const uint8_t kStdDcChromBits[16] = {0, 3, 1, 1, 1, 1, 1, 1,
+                                     1, 1, 1, 0, 0, 0, 0, 0};
+const uint8_t kStdDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kStdAcLumBits[16] = {0, 2, 1, 3, 3, 2, 4, 3,
+                                   5, 5, 4, 4, 0, 0, 1, 0x7d};
+const uint8_t kStdAcLumVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
+const uint8_t kStdAcChromBits[16] = {0, 2, 1, 2, 4, 4, 3, 4,
+                                     7, 5, 4, 4, 0, 1, 2, 0x77};
+const uint8_t kStdAcChromVals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa};
 
 // Entropy-coded data as jdhuff.c's fill_bit_buffer reads it: 0xFF00 is a
 // 0xFF byte, a marker stops the data and zeros are supplied after it.
@@ -751,6 +796,12 @@ struct Decoder {
         }
       }
     }
+    if (scans == 0) {  // jdhuff.c / jdphuff.c: std_huff_tables
+      if (!dc[0].defined) dc[0].build(kStdDcLumBits, kStdDcVals, true);
+      if (!dc[1].defined) dc[1].build(kStdDcChromBits, kStdDcVals, true);
+      if (!ac[0].defined) ac[0].build(kStdAcLumBits, kStdAcLumVals, false);
+      if (!ac[1].defined) ac[1].build(kStdAcChromBits, kStdAcChromVals, false);
+    }
     for (Component* c : sc) {
       if (!c->latched) {
         if (!qt_def[c->tq])
@@ -762,8 +813,7 @@ struct Decoder {
       bool need_ac = !progressive || ss > 0;
       if ((need_dc && !dc[c->dc_tbl].defined) ||
           (need_ac && !ac[c->ac_tbl].defined))
-        fail(kErrUnsupported, "a scan without its Huffman table (the "
-                              "default tables of Motion JPEG)");
+        fail(kErrCorrupt, "a scan without its Huffman table");
       c->dc_pred = 0;
     }
     eobrun = 0;
@@ -873,7 +923,7 @@ struct Decoder {
   // jdcoefct.c smoothing_ok: libjpeg-turbo smooths the blocks of a
   // progressive file when a component's DC is known and one of its first
   // nine AC coefficients is still incomplete
-  bool would_smooth() const {
+  bool smoothing_ok() const {
     if (!progressive) return false;
     static const int kPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
     bool useful = false;
@@ -888,13 +938,178 @@ struct Decoder {
     return useful;
   }
 
-  void idct_plane(Component& c, std::vector<uint8_t>& plane, int& stride) {
+  void idct_plane(Component& c, std::vector<uint8_t>& plane, int& stride,
+                  bool smooth) {
     stride = c.wib * 8;
     plane.assign(size_t(stride) * c.hib * 8, 0);
+    if (smooth) {
+      smooth_plane(c, plane.data(), stride);
+      return;
+    }
     for (int by = 0; by < c.hib; by++)
       for (int bx = 0; bx < c.wib; bx++)
         idct_islow(c.block(bx, by), c.q,
                    plane.data() + size_t(by) * 8 * stride + bx * 8, stride);
+  }
+
+  // jdcoefct.c decompress_smooth_data (libjpeg-turbo 3.1), after the whole
+  // file is read: each block's zero coefficients among the first nine AC
+  // that its scans left incomplete are estimated from the DC values of the
+  // 5x5 blocks around it (the coefficients' Al bounds the estimate); when
+  // no AC coefficient was sent at all the DC is interpolated as well. The
+  // neighbours' rows follow libjpeg's iMCU-row bookkeeping, quirks and all:
+  // on the last iMCU row, whether a row above or below exists is judged by
+  // that row's own block count.
+  void smooth_plane(Component& c, uint8_t* plane, int stride) {
+    const int* cb = c.coef_bits;
+    const bool change_dc = cb[1] == -1 && cb[2] == -1 && cb[3] == -1 &&
+                           cb[4] == -1 && cb[5] == -1 && cb[6] == -1 &&
+                           cb[7] == -1 && cb[8] == -1 && cb[9] == -1;
+    const int64_t Q00 = c.q[0], Q01 = c.q[1], Q10 = c.q[8], Q20 = c.q[16],
+                  Q11 = c.q[9], Q02 = c.q[2], Q03 = c.q[3], Q12 = c.q[10],
+                  Q21 = c.q[17], Q30 = c.q[24];
+    auto estimate = [](int al, int64_t q, int64_t num, bool clamp) {
+      int pred;
+      if (num >= 0) {
+        pred = int(((q << 7) + num) / (q << 8));
+        if (clamp && al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      } else {
+        pred = int(((q << 7) - num) / (q << 8));
+        if (clamp && al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+        pred = -pred;
+      }
+      return int16_t(pred);
+    };
+    const int R = mcus_y, v = c.v, last_col = c.wib - 1;
+    int16_t ws[64];
+    for (int r = 0; r < R; r++) {
+      int block_rows = v;
+      if (r == R - 1) {
+        block_rows = c.hib % v;
+        if (block_rows == 0) block_rows = v;
+      }
+      const int image_block_rows = block_rows * R;
+      for (int br = 0; br < block_rows; br++) {
+        const int row = r * v + br;
+        const int ibr = r * block_rows + br;
+        const int prev = ibr > 0 ? row - 1 : row;
+        const int pprev = ibr > 1 ? row - 2 : prev;
+        const int next = ibr < image_block_rows - 1 ? row + 1 : row;
+        const int nnext = ibr < image_block_rows - 2 ? row + 2 : next;
+        if (pprev < 0 || nnext >= c.bh || row >= c.hib)
+          fail(kErrCorrupt, "block smoothing outside the coefficients");
+        auto dcv = [&](int rr, int col) { return int(c.block(col, rr)[0]); };
+        int DC01, DC02, DC03, DC04, DC05, DC06, DC07, DC08, DC09, DC10, DC11,
+            DC12, DC13, DC14, DC15, DC16, DC17, DC18, DC19, DC20, DC21, DC22,
+            DC23, DC24, DC25;
+        DC01 = DC02 = DC03 = DC04 = DC05 = dcv(pprev, 0);
+        DC06 = DC07 = DC08 = DC09 = DC10 = dcv(prev, 0);
+        DC11 = DC12 = DC13 = DC14 = DC15 = dcv(row, 0);
+        DC16 = DC17 = DC18 = DC19 = DC20 = dcv(next, 0);
+        DC21 = DC22 = DC23 = DC24 = DC25 = dcv(nnext, 0);
+        for (int bn = 0; bn <= last_col; bn++) {
+          std::memcpy(ws, c.block(bn, row), sizeof(ws));
+          if (bn == 0 && bn < last_col) {
+            DC04 = DC05 = dcv(pprev, 1);
+            DC09 = DC10 = dcv(prev, 1);
+            DC14 = DC15 = dcv(row, 1);
+            DC19 = DC20 = dcv(next, 1);
+            DC24 = DC25 = dcv(nnext, 1);
+          }
+          if (bn + 1 < last_col) {
+            DC05 = dcv(pprev, bn + 2);
+            DC10 = dcv(prev, bn + 2);
+            DC15 = dcv(row, bn + 2);
+            DC20 = dcv(next, bn + 2);
+            DC25 = dcv(nnext, bn + 2);
+          }
+          int al;
+          int64_t num;
+          if ((al = cb[1]) != 0 && ws[1] == 0) {  // AC01
+            num = Q00 * (change_dc
+                             ? (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 +
+                                13 * DC07 - 13 * DC09 + 3 * DC10 - 3 * DC11 +
+                                38 * DC12 - 38 * DC14 + 3 * DC15 - 3 * DC16 +
+                                13 * DC17 - 13 * DC19 + 3 * DC20 - DC21 -
+                                DC22 + DC24 + DC25)
+                             : (-7 * DC11 + 50 * DC12 - 50 * DC14 +
+                                7 * DC15));
+            ws[1] = estimate(al, Q01, num, true);
+          }
+          if ((al = cb[2]) != 0 && ws[8] == 0) {  // AC10
+            num = Q00 * (change_dc
+                             ? (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 -
+                                DC05 - DC06 + 13 * DC07 + 38 * DC08 +
+                                13 * DC09 - DC10 + DC16 - 13 * DC17 -
+                                38 * DC18 - 13 * DC19 + DC20 + DC21 +
+                                3 * DC22 + 3 * DC23 + 3 * DC24 + DC25)
+                             : (-7 * DC03 + 50 * DC08 - 50 * DC18 +
+                                7 * DC23));
+            ws[8] = estimate(al, Q10, num, true);
+          }
+          if ((al = cb[3]) != 0 && ws[16] == 0) {  // AC20
+            num = Q00 * (change_dc
+                             ? (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 -
+                                5 * DC12 - 14 * DC13 - 5 * DC14 + 2 * DC17 +
+                                7 * DC18 + 2 * DC19 + DC23)
+                             : (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 -
+                                DC23));
+            ws[16] = estimate(al, Q20, num, true);
+          }
+          if ((al = cb[4]) != 0 && ws[9] == 0) {  // AC11
+            num = Q00 * (change_dc
+                             ? (-DC01 + DC05 + 9 * DC07 - 9 * DC09 -
+                                9 * DC17 + 9 * DC19 + DC21 - DC25)
+                             : (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 -
+                                DC20 + DC22 - DC24 + DC04 - DC06 +
+                                10 * DC07 - 10 * DC09));
+            ws[9] = estimate(al, Q11, num, true);
+          }
+          if ((al = cb[5]) != 0 && ws[2] == 0) {  // AC02
+            num = Q00 * (change_dc
+                             ? (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 +
+                                7 * DC12 - 14 * DC13 + 7 * DC14 + DC15 +
+                                2 * DC17 - 5 * DC18 + 2 * DC19)
+                             : (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 -
+                                DC15));
+            ws[2] = estimate(al, Q02, num, true);
+          }
+          if (change_dc) {
+            if ((al = cb[6]) != 0 && ws[3] == 0) {  // AC03
+              num = Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19);
+              ws[3] = estimate(al, Q03, num, true);
+            }
+            if ((al = cb[7]) != 0 && ws[10] == 0) {  // AC12
+              num = Q00 * (DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19);
+              ws[10] = estimate(al, Q12, num, true);
+            }
+            if ((al = cb[8]) != 0 && ws[17] == 0) {  // AC21
+              num = Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19);
+              ws[17] = estimate(al, Q21, num, true);
+            }
+            if ((al = cb[9]) != 0 && ws[24] == 0) {  // AC30
+              num = Q00 * (DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19);
+              ws[24] = estimate(al, Q30, num, true);
+            }
+            num = Q00 * (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 -
+                         2 * DC05 - 6 * DC06 + 6 * DC07 + 42 * DC08 +
+                         6 * DC09 - 6 * DC10 - 8 * DC11 + 42 * DC12 +
+                         152 * DC13 + 42 * DC14 - 8 * DC15 - 6 * DC16 +
+                         6 * DC17 + 42 * DC18 + 6 * DC19 - 6 * DC20 -
+                         2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 -
+                         2 * DC25);
+            ws[0] = estimate(0, Q00, num, false);
+          }
+          idct_islow(ws, c.q, plane + size_t(row) * 8 * stride + bn * 8,
+                     stride);
+          DC01 = DC02; DC02 = DC03; DC03 = DC04; DC04 = DC05;
+          DC06 = DC07; DC07 = DC08; DC08 = DC09; DC09 = DC10;
+          DC11 = DC12; DC12 = DC13; DC13 = DC14; DC14 = DC15;
+          DC16 = DC17; DC17 = DC18; DC18 = DC19; DC19 = DC20;
+          DC21 = DC22; DC22 = DC23; DC23 = DC24; DC24 = DC25;
+        }
+      }
+    }
   }
 
   // jdsample.c: the component plane -> width x height samples
@@ -970,16 +1185,13 @@ struct Decoder {
   }
 
   void render(uint8_t* rgb) {
-    if (would_smooth())
-      fail(kErrUnsupported,
-           "progressive scans that leave coefficients incomplete (block "
-           "smoothing)");
+    const bool smooth = smoothing_ok();
     const size_t np = size_t(width) * height;
     std::vector<std::vector<uint8_t>> full(comps.size());
     for (size_t i = 0; i < comps.size(); i++) {
       std::vector<uint8_t> plane;
       int stride = 0;
-      idct_plane(comps[i], plane, stride);
+      idct_plane(comps[i], plane, stride, smooth);
       full[i] = upsample(comps[i], plane, stride);
     }
     const int nc = int(comps.size());

@@ -138,8 +138,12 @@ def group_crops(name: str, images, patch: int = 256):
 
 
 def pick_which(ckpt: str, which):
-    return which or ("best" if os.path.exists(
-        os.path.join(ckpt, "best.npz")) else "last")
+    """``which``, else "best" when the directory has one (npz or Orbax),
+    else "last"."""
+    from ..convert import checkpoint_source
+
+    return which or ("best" if checkpoint_source(ckpt, "best")[0]
+                     else "last")
 
 
 def est_bits_levels(model, x: torch.Tensor, qualities) -> list:

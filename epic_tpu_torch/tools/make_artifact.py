@@ -1,5 +1,6 @@
 """Convert a checkpoint directory (``config.json`` + ``last.npz`` /
-``best.npz``, e.g. one ``cli.train`` wrote in float32) into the compact
+``best.npz``, e.g. one ``cli.train`` wrote in float32, or the Orbax
+``last/`` / ``best/`` of the JAX trainer) into the compact
 committed-artifact format: ``config.json`` + ``last.npz`` in bfloat16, the
 stacked heads' dead rows zeroed, compressed (``training.checkpoint.
 save_artifact``). Prints one JSON line: src, out, step, size_mb. Runs on
@@ -21,14 +22,15 @@ def main(argv=None) -> dict:
     p.add_argument("src")
     p.add_argument("dst")
     p.add_argument("--which", default=None,
-                   help="best | last (default: best when best.npz exists)")
+                   help="best | last (default: best when the source has "
+                        "one, as best.npz or an Orbax best/)")
     args = p.parse_args(argv)
 
-    from ..convert import load_checkpoint
+    from ..convert import checkpoint_source, load_checkpoint
     from ..training.checkpoint import save_artifact
 
-    which = args.which or ("best" if os.path.exists(
-        os.path.join(args.src, "best.npz")) else "last")
+    which = args.which or ("best" if checkpoint_source(args.src, "best")[0]
+                           else "last")
     model, config, step = load_checkpoint(args.src, which)
     out = save_artifact(args.dst, model, config, step)
     rec = {"src": f"{args.src}/{which}", "out": out, "step": step,

@@ -4,8 +4,9 @@
 ``save_checkpoint`` writes the JAX package's parameter tree
 (``convert.to_jax_params``) flattened to "a/b/c" keys, in float32, so
 ``epic_tpu_torch.load_checkpoint`` and the JAX package's ``load_checkpoint``
-both read it. (The JAX trainer writes Orbax checkpoints; the port has no
-Orbax.) The arrays are stored uncompressed, since zlib takes tens of
+both read it. (The JAX trainer writes Orbax checkpoints, which the port
+reads through ``training/orbax.py`` and does not write.) The arrays are
+stored uncompressed, since zlib takes tens of
 seconds on a flagship tree: a flagship ``rem`` checkpoint is 653,787,546
 bytes (written by chip_smoke.py's training phase).
 

@@ -75,7 +75,8 @@ def parse_train_args(argv=None) -> argparse.Namespace:
     p.add_argument("--checkpoint_base", default="none")
     p.add_argument("--test_before", action="store_true", default=False)
     p.add_argument("--eval_every", type=int, default=2)
-    # multi-device (the parallel layer is not ported)
+    # multi-device: parsed and unused, as in the JAX package (the
+    # data-parallel step is parallel.mesh's, driven by its own callers)
     p.add_argument("--num_devices", type=int, default=0,
                    help="0 = all visible devices")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")

@@ -4,7 +4,9 @@ of each file's decode by Pillow (``np.asarray(Image.open(p).convert("RGB"))``,
 uint8 [H, W, 3] C-order bytes) in ``checksums.json``.
 
 The pictures are seeded numpy images; Pillow writes the JPEG, BMP and PPM
-files and the 1-bit PNG. Pillow's PNG writer has no interlace and no 16-bit
+files and the 1-bit PNG. Five JPEG files are Pillow's with a change of
+bytes: two without their DHT segments (the standard tables apply) and three
+progressive ones cut after their first scans (block smoothing applies). Pillow's PNG writer has no interlace and no 16-bit
 RGB, so those two PNG files are written by ``write_png`` below (zlib and
 numpy), and Pillow's decode of them gives their checksums all the same.
 
@@ -16,6 +18,7 @@ Not collected by pytest. Regenerate with:
 from __future__ import annotations
 
 import hashlib
+import io
 import json
 import os
 import struct
@@ -83,6 +86,38 @@ def write_png(path: str, samples: np.ndarray, depth: int, colour: int,
                 + chunk(b"IEND", b""))
 
 
+def segments(data: bytes):
+    """(marker, start, end) of each segment after SOI; a scan's segment
+    runs to the marker after its entropy-coded data."""
+    out, i = [], 2
+    while i < len(data):
+        m = data[i + 1]
+        if m == 0xD9:
+            out.append((m, i, i + 2))
+            break
+        j = i + 2 + int.from_bytes(data[i + 2:i + 4], "big")
+        if m == 0xDA:
+            while not (data[j] == 0xFF and data[j + 1] != 0
+                       and not 0xD0 <= data[j + 1] <= 0xD7):
+                j += 1
+        out.append((m, i, j))
+        i = j
+    return out
+
+
+def strip_dht(data: bytes) -> bytes:
+    """The JPEG file without its DHT segments."""
+    return data[:2] + b"".join(data[a:b] for m, a, b in segments(data)
+                               if m != 0xC4)
+
+
+def first_scans(data: bytes, keep: int) -> bytes:
+    """The JPEG file cut before its scan number ``keep`` (from 0), EOI
+    kept."""
+    starts = [a for m, a, _ in segments(data) if m == 0xDA]
+    return data[:starts[keep]] + b"\xff\xd9"
+
+
 def pillow_sha256(path: str) -> str:
     with Image.open(path) as im:
         a = np.ascontiguousarray(np.asarray(im.convert("RGB"), np.uint8))
@@ -115,6 +150,27 @@ def main():
     for name, (img, kw) in jpeg.items():
         im = img if isinstance(img, Image.Image) else Image.fromarray(img)
         im.save(os.path.join(DIR, name), "JPEG", **kw)
+    # C-10 (a): baseline files without DHT segments (Pillow's tables with
+    # optimize=False are the standard ones that the decoder falls back on)
+    for name, img in (("nodht_420.jpg", odd),
+                      ("nodht_grey.jpg", Image.fromarray(small).convert("L"))):
+        im = img if isinstance(img, Image.Image) else Image.fromarray(img)
+        buf = io.BytesIO()
+        im.save(buf, "JPEG", quality=85, optimize=False)
+        with open(os.path.join(DIR, name), "wb") as f:
+            f.write(strip_dht(buf.getvalue()))
+    # C-10 (b): progressive files cut after their first scans (EOI kept),
+    # which libjpeg-turbo block-smooths: the DC scan alone (4:2:0), the
+    # first five scans (4:2:0), and all but the three last AC refinement
+    # scans (4:4:4)
+    for name, img, sub, keep in (("smooth_dc420.jpg", odd, 2, 1),
+                                 ("smooth_ac420.jpg", odd, 2, 5),
+                                 ("smooth_norefine444.jpg", small, 0, 7)):
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "JPEG", quality=80, progressive=True,
+                                  subsampling=sub)
+        with open(os.path.join(DIR, name), "wb") as f:
+            f.write(first_scans(buf.getvalue(), keep))
     write_png(os.path.join(DIR, "interlaced_rgb8.png"), odd, 8, 2,
               interlace=True)
     write_png(os.path.join(DIR, "rgb16.png"),

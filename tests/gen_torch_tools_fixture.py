@@ -11,7 +11,10 @@ same crops (``tiles``) without compiling any JAX program. The crops reach
 the JAX tools through their ``heldout_crops`` / ``region_crops``, replaced
 in the imported tool modules; nothing under ``tools/`` is edited. XLA runs
 without excess precision, so that the bf16 layers of the JAX WACNN round as
-their dtype says, as the port's do.
+their dtype says, as the port's do. The bf16 WACNN tool runs once more in
+a process of its own with XLA's default flags (excess precision allowed),
+the program the JAX package runs unless told otherwise, under the key
+``eval_cnn_xla_default``.
 
 Not collected by pytest. Regenerate with:
 
@@ -22,6 +25,7 @@ from __future__ import annotations
 
 import json
 import os
+import subprocess
 import sys
 import tempfile
 
@@ -74,8 +78,10 @@ def tiny_checkpoints(root: str):
 
 
 def main():
-    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
-                               + " --xla_allow_excess_precision=false")
+    default_flags = "--xla-default-flags" in sys.argv
+    if not default_flags:
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                                   + " --xla_allow_excess_precision=false")
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     import eval_checkpoint as j_eval
@@ -95,11 +101,14 @@ def main():
         os.environ["HOME"] = tmp  # the JAX tools' compile cache
         ck = tiny_checkpoints(tmp)
         res = {}
-        for name, tool, argv in (
-                ("eval_checkpoint", j_eval,
+        runs = (("eval_checkpoint", j_eval,
                  [ck["rem"], "--compute_dtype", "float32"]),
                 ("eval_cnn", j_cnn, [ck["cnn"], "--regions", "val"]),
-                ("eval_cnn_float32", j_cnn, [ck["cnn"], "--regions", "val"])):
+                ("eval_cnn_float32", j_cnn, [ck["cnn"], "--regions", "val"]))
+        if default_flags:
+            runs = (("eval_cnn_xla_default", j_cnn,
+                     [ck["cnn"], "--regions", "val"]),)
+        for name, tool, argv in runs:
             out = os.path.join(tmp, name + ".json")
             j_training.load_checkpoint = (load_float32 if "float32" in name
                                           else j_load)
@@ -108,6 +117,22 @@ def main():
                 res[name] = json.load(f)
             res[name]["checkpoint"] = os.path.basename(
                 res[name]["checkpoint"].split("/last")[0]) + "/last@1"
+    if default_flags:
+        print(json.dumps(res))
+        return
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = env["XLA_FLAGS"].replace(
+        "--xla_allow_excess_precision=false", "").strip()
+    if not env["XLA_FLAGS"]:
+        del env["XLA_FLAGS"]
+    with tempfile.TemporaryDirectory() as home:
+        env["HOME"] = home
+        proc = subprocess.run(
+            [sys.executable, __file__, "--xla-default-flags"], env=env,
+            capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(proc.stderr)
+    res.update(json.loads(proc.stdout.strip().splitlines()[-1]))
     res["meta"] = {"configs": {k: {kk: list(vv) if isinstance(vv, tuple)
                                    else vv for kk, vv in v.items()}
                                for k, v in CONFIGS.items()},

@@ -16,6 +16,9 @@ every image through Pillow (``epic_tpu.data.datasets._load_image``).
   P1-P6 at several maxvals.
 - The committed fixtures (``tests/fixtures/images``, written by
   ``gen_torch_image_fixtures.py``) decode to Pillow's checksums.
+- Progressive files that stop after any of their scans (block smoothing)
+  and baseline files without DHT segments (the standard tables) read as
+  the JAX package's.
 - Each refused feature raises ValueError naming the file.
 - ``ImageFolder`` + ``data_loader`` on a folder of mixed formats give the
   JAX package's batches bit for bit.
@@ -519,7 +522,7 @@ def test_ppm_reads_as_jax(tmp_path, name):
 def test_fixtures_match_pillow_checksums():
     with open(os.path.join(FIXTURES, "checksums.json")) as f:
         sums = json.load(f)
-    assert len(sums) >= 19
+    assert len(sums) >= 24
     for name, digest in sums.items():
         got = read_image(os.path.join(FIXTURES, name))
         assert hashlib.sha256(np.ascontiguousarray(got).tobytes()
@@ -536,14 +539,12 @@ def refused_files():
     buf = io.BytesIO()
     Image.fromarray(picture(32, 48, 3)).save(buf, "JPEG", quality=80)
     jpg = buf.getvalue()
-    buf = io.BytesIO()
-    Image.fromarray(picture(32, 48, 3)).save(buf, "JPEG", quality=80,
-                                             progressive=True)
-    prog = buf.getvalue()
     sof = jpg.index(b"\xff\xc0")
     twelve = jpg[:sof + 4] + b"\x0c" + jpg[sof + 5:]
-    # the progressive file's first scans only: its AC bands never complete
-    scans = [m.start() for m in re.finditer(b"\xff\xda", prog)]
+    # a scan naming Huffman table 2, which no DHT segment defines (only
+    # slots 0 and 1 have standard tables to fall back on)
+    sos = jpg.index(b"\xff\xda")
+    no_table = jpg[:sos + 6] + b"\x22" + jpg[sos + 7:]
     two_comp = write_jpeg(planes_for(16, 16, [(1, 1)] * 2, 0), [(1, 1)] * 2)
     return {
         "arith.jpg": (_with_marker(jpg, 0xC0, 0xC9), "arithmetic coding"),
@@ -553,7 +554,7 @@ def refused_files():
         "two.jpg": (two_comp, "2-component"),
         "half.jpg": (jpg[:len(jpg) // 2], "truncated"),
         "no_eoi.jpg": (jpg[:-2], "truncated"),
-        "dc_only.jpg": (prog[:scans[2]] + b"\xff\xd9", "block smoothing"),
+        "no_table.jpg": (no_table, "without its Huffman table"),
         "bad_depth.png": (None, "bit depth 4 and colour type 2"),
         "jpeg_in.bmp": (_bmp(4, 4, 24, bytes(64), comp=4), "compression 4"),
         "fields.bmp": (_bmp(4, 4, 32, bytes(64), comp=3,
@@ -565,6 +566,49 @@ def refused_files():
 
 
 REFUSED = refused_files()
+
+
+def _smoothing_cases():
+    """Progressive files of Pillow cut after each of their scans but the
+    last (EOI kept), which libjpeg-turbo block-smooths, and baseline files
+    without DHT segments (the standard tables apply): {id: (image, save
+    options, kind, scans kept)}."""
+    cases = {}
+    for sub, name in ((2, "420"), (1, "422"), (0, "444"), (None, "grey")):
+        img = (Image.fromarray(picture(37, 53, 5)).convert("L") if sub is None
+               else Image.fromarray(picture(37, 53, 5)))
+        kw = dict(quality=80, progressive=True)
+        if sub is not None:
+            kw["subsampling"] = sub
+        buf = io.BytesIO()
+        img.save(buf, "JPEG", **kw)
+        n = buf.getvalue().count(b"\xff\xda")
+        for keep in range(1, n):
+            cases[f"progressive{name}_first{keep}"] = (img, kw, "cut", keep)
+        cases[f"nodht_{name}"] = (img, dict(quality=85, optimize=False,
+                                            subsampling=sub or 0,
+                                            restart_marker_blocks=3),
+                                  "nodht", 0)
+    return cases
+
+
+SMOOTHING = _smoothing_cases()
+
+
+@pytest.mark.parametrize("name", sorted(SMOOTHING))
+def test_smoothed_and_tableless_jpeg_read_as_jax(tmp_path, name):
+    from gen_torch_image_fixtures import first_scans, strip_dht
+
+    img, kw, kind, keep = SMOOTHING[name]
+    buf = io.BytesIO()
+    img.save(buf, "JPEG", **kw)
+    data = buf.getvalue()
+    data = first_scans(data, keep) if kind == "cut" else strip_dht(data)
+    if kind == "nodht":
+        assert b"\xff\xc4" not in data
+    path = tmp_path / (name + ".jpg")
+    path.write_bytes(data)
+    assert_reads_as_jax(path)
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))

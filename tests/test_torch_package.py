@@ -19,7 +19,8 @@ from epic_tpu_torch.utils.metrics import compute_psnr
 from epic_tpu_torch.utils.padding import pad_image, unpad_image
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "PIL", "epic_tpu")
+_BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "PIL", "epic_tpu",
+            "tensorstore", "zstandard")
 
 
 def test_imports_without_jax_flax_pil():
@@ -41,6 +42,12 @@ def test_imports_without_jax_flax_pil():
             "import epic_tpu_torch.cli.codec, epic_tpu_torch.cli.demo\n"
             "import epic_tpu_torch.training.evaluate\n"
             "import epic_tpu_torch.utils.parser, epic_tpu_torch.data.png\n"
+            "import epic_tpu_torch.native.zstd\n"
+            "import epic_tpu_torch.training.ocdbt\n"
+            "import epic_tpu_torch.training.orbax\n"
+            "model, _, _ = epic_tpu_torch.load_checkpoint("
+            "'tests/fixtures/orbax/flagship_tiled')\n"
+            "assert type(model).__name__ == 'VarianceMaskingPICREM'\n"
             "try:\n"
             "    db.load_teaser_images('no/such/teaser.png')\n"
             "except FileNotFoundError as e:\n"
@@ -56,7 +63,8 @@ def test_imports_without_jax_flax_pil():
 
 
 def test_no_import_of_the_jax_package_in_the_port():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|PIL|epic_tpu)\b"
+    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|tensorstore"
+                     r"|zstandard|PIL|epic_tpu)\b"
                      r"(?!_torch)")
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "epic_tpu_torch")):

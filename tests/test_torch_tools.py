@@ -10,15 +10,16 @@ package's (``tools/``).
   (the streams are the JAX package's bytes), estimated bpp within 1e-3
   relative, PSNR within 0.05 dB, MS-SSIM within 0.1 dB, the shell table's
   counts equal, and the per-quality REM rows' rates equal. The bf16 WACNN
-  rates are held within 0.5% (see ``test_eval_cnn_matches_jax``). No JAX
-  program is compiled here.
+  is held to the JAX tool as XLA compiles it by default, both rates within
+  0.25% (the measured gap is 0.20%), and within 0.5% of the same tool
+  compiled without excess precision (see ``test_eval_cnn_matches_jax``).
+  No JAX program is compiled here.
 - ``extend_rem_banks`` of both packages, live, on the tiny ``rem``
   checkpoint, re-indexing its banks: the banks, the config and
   ``progress.json`` equal; then the port's tool grows it to three check
   levels with one fresh bank of the trained banks' shapes. The JAX package
-  loads the port's output; the JAX tool writes Orbax, which the port does
-  not read (the card's machine has no Orbax), so its output is read here
-  by the JAX package.
+  loads the port's output (npz); the JAX tool writes Orbax, which both
+  packages read (the port through ``training/orbax.py``).
 - ``bench_rans``: ``gaussian_tables`` equal to the JAX tool's, and a round
   trip at 20,000 symbols.
 """
@@ -142,14 +143,19 @@ def test_eval_cnn_matches_jax(runs, dtype):
     if dtype == "float32":
         assert a["bpp"] == b["bpp"]
         assert abs(a["est_bpp"] - b["est_bpp"]) <= 1e-3 * b["est_bpp"]
-    else:
-        # bf16: the port's base-chain parameter nets round differently
-        # from XLA's (mean |bf16 - float32| of mu 0.0074 against the JAX
-        # package's own 0.0055 on these weights), and this random-init
-        # WACNN's scales sit at the lower bound, where such a shift moves
-        # a rounding: both rates stay within 0.5% of the JAX tool's
-        assert abs(a["bpp"] - b["bpp"]) <= 5e-3 * b["bpp"]
-        assert abs(a["est_bpp"] - b["est_bpp"]) <= 5e-3 * b["est_bpp"]
+        return
+    # bf16 (ROADMAP C-9): the reference is the JAX program as XLA compiles
+    # it by default ("eval_cnn_xla_default", 0.9629 bpp, est 1.131), which
+    # evaluates jax.nn.gelu in float32 with its constants rounded to bf16
+    # and rounds once; the port's F.gelu rounds once too but with float32
+    # constants: 0.9648 bpp, est 1.1333, gaps of 0.197% and 0.203%. The
+    # program without excess precision ("eval_cnn", 0.9617) rounds every
+    # operation; the port keeps within the old 0.5% of it as well
+    d = want["eval_cnn_xla_default"]["groups"]["val"]
+    assert abs(a["bpp"] - d["bpp"]) <= 2.5e-3 * d["bpp"]
+    assert abs(a["est_bpp"] - d["est_bpp"]) <= 2.5e-3 * d["est_bpp"]
+    assert abs(a["bpp"] - b["bpp"]) <= 5e-3 * b["bpp"]
+    assert abs(a["est_bpp"] - b["est_bpp"]) <= 5e-3 * b["est_bpp"]
 
 
 def _tree_shapes(tree, prefix=""):
@@ -197,10 +203,15 @@ def test_extend_rem_banks_matches_jax(runs, tmp_path, monkeypatch):
     model, _, step = load_checkpoint(str(mine))
     assert step == 0
     ported = _tree_shapes(to_jax_params(model))
-    assert a.keys() == b.keys() == ported.keys()
+    # the JAX tool's Orbax output, read by the port
+    model_t, _, step_t = load_checkpoint(str(theirs))
+    assert step_t == 0
+    ported_t = _tree_shapes(to_jax_params(model_t))
+    assert a.keys() == b.keys() == ported.keys() == ported_t.keys()
     for k in a:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
         np.testing.assert_array_equal(ported[k], a[k], err_msg=k)
+        np.testing.assert_array_equal(ported_t[k], b[k], err_msg=k)
         src = k.replace("post_latent_0/", "post_latent_1/")
         np.testing.assert_array_equal(a[k], trained[src], err_msg=k)
 
