@@ -12,22 +12,27 @@ Phases, one progress line each (flush=True):
     ``tests/fixtures/z_tables_jax.npz`` (the constructor's weights and a
     seeded draw, 192 channels, their arrays stored beside them), equal bit
     for bit to the JAX package's tables stored there;
- 2. build: the GDN kernel and its backward (nvcc, sm_90a) and the host
-    rANS library (g++), started together;
+ 2. build: the GDN kernel (wgmma, TMA, clusters) and its backward (nvcc,
+    sm_90a) and the host rANS library (g++), started together; ptxas's
+    registers, spills and warnings;
  3. kernels: fused GDN and inverse GDN against ``gdn_plain``, max relative
-    error <= 1e-5: at the main path's row counts (393,216 / 98,304 /
-    24,576 / 6,144 for 768x512 images at batch 4 and 1, a ragged 21, and
-    262,144 / 65,536 / 16,384 for a training step at batch 16, patch 256;
-    for IGDN also the rows of ``progressive_decode_all``, whose 15 levels
-    fold into the batch: 5,898,240 at batch 4, 1,474,560 / 368,640 /
-    92,160), C = 192, with CUDA-event times of the
-    kernel, of ``gdn_plain`` and of the product alone
-    (``torch.matmul(x*x, gamma)``, cuBLAS SGEMM) beside the tensor-core and
-    CUDA-core bounds; at ragged R 1 / 31 / 33 / 98,309; at every C the
-    kernel takes (R = 333); 21 rows alone against the same rows at
-    offsets 0, 5 and 37 inside 98,304, bitwise; and, as the pipeline
-    launches it, on a side stream and from two threads on two streams at
-    once, bitwise the main stream's;
+    error <= 1e-5, with float32 and with bf16 in and out (bf16: bitwise the
+    float32 variant's output on the same values, rounded to bf16): at the
+    main path's row counts (393,216 / 98,304 / 24,576 / 6,144 for 768x512
+    images at batch 4 and 1, a ragged 21, and 262,144 / 65,536 / 16,384
+    for a training step at batch 16, patch 256; for IGDN also the rows of
+    ``progressive_decode_all``, whose 15 levels fold into the batch:
+    5,898,240 at batch 4, 1,474,560 / 368,640 / 92,160), C = 192, with
+    CUDA-event times of the kernel in both types, of ``gdn_plain``, of the
+    product alone (``torch.matmul(x*x, gamma)``, cuBLAS SGEMM) and of the
+    bf16 ``GDN`` module call beside the cast, float32 call, cast it
+    replaces, beside the tensor-core bound of each type and the CUDA-core
+    bound; at ragged R 1 / 31 / 33 / 98,309; at every C the kernel takes
+    (R = 333); 21 rows alone against the same rows at offsets 0, 5 and 37
+    inside 98,304, bitwise; and, as the pipeline launches it, on a side
+    stream and from two threads on two streams at once, bitwise the main
+    stream's; 300 launches of one 24,576-row input bitwise alike; every
+    check in both types;
  3b. backward kernel: GDN's and IGDN's backward (``gdn_backward_rows``: dx
     and u) against ``gdn_backward_rows_plain``, and ``gdn_backward``'s
     (dx, dgamma, dbeta) against autograd through ``gdn_plain``, norm-wise
@@ -181,7 +186,8 @@ Phases, one progress line each (flush=True):
     array the bf16 cast of the fixture's, the dead rows zero. Within 150 s.
 
 ``python3 chip_smoke.py --phases 16,17`` runs the environment, the build
-and the listed phases only (and prints no kernels record); ``--phases 18``
+and the listed phases only (and prints no kernels record; 3 and 3b may be
+listed too); ``--phases 18``
 runs phase 18 on random-weight stand-ins of phases 9 and 11's
 checkpoints; ``--phases 19`` needs nothing else.
 
@@ -233,6 +239,8 @@ GDN_ROWS = (393_216, 98_304, 24_576, 6_144, 21, 262_144, 65_536, 16_384,
 # batch 4 (its top layer's 5,898,240 rows are 4.5 GB in float32) and 1
 IGDN_FOLDED_ROWS = (5_898_240, 1_474_560, 368_640, 92_160)
 GDN_RAGGED_ROWS = (1, 31, 33, 98_309)
+# launches of one input that must give the same bits (phase 3)
+REPEAT_LAUNCHES = 300
 GDN_C = 192
 REL_TOL = 1e-5
 # the backward kernel at a flagship first_train step (batch 16, patch 256):
@@ -348,7 +356,8 @@ def phase_build():
                              "_build", f"{stem}_ptxas.txt")
         if os.path.exists(ptxas):
             for line in open(ptxas).read().splitlines():
-                if "registers" in line or "spill" in line:
+                if any(k in line for k in ("registers", "spill",
+                                           "Performance")):
                     log(f"[2 build] ptxas {stem}: " + line.strip())
 
 
@@ -371,15 +380,16 @@ def time_cuda(fn, reps: int = 20, inner: int = 10) -> float:
     return float(np.median(samples))
 
 
-def gdn_bounds_ms(rows: int, c: int, peak: tuple):
+def gdn_bounds_ms(rows: int, c: int, peak: tuple, elem: int = 4):
     """Least times for GDN over [rows, c] on this card, in ms: (tensor-core
-    bound, what binds it, CUDA-core bound). The bytes are x, gamma, beta read
-    once and y written once over the memory rate. The kernel's float32
-    accuracy on tensor cores takes three TF32 products (3 * 2RC^2 operations
-    at the TF32 peak); the CUDA-core bound, the design of the earlier kernel,
-    counts 2RC^2 + 4RC float32 operations at the float32 peak."""
+    bound, what binds it, CUDA-core bound). The bytes are x read once and y
+    written once (`elem` bytes each: 4 float32, 2 bf16), gamma and beta
+    (float32) read once, over the memory rate. The kernel's float32 accuracy
+    on tensor cores takes three TF32 products (3 * 2RC^2 operations at the
+    TF32 peak); the CUDA-core bound, the design of the first kernel, counts
+    2RC^2 + 4RC float32 operations at the float32 peak."""
     f32, tf32, bw = peak
-    t_bytes = 4.0 * (2 * rows * c + c * c + c) / (bw * 1e12)
+    t_bytes = (2.0 * elem * rows * c + 4.0 * (c * c + c)) / (bw * 1e12)
     t_tc = 3 * 2.0 * rows * c * c / (tf32 * 1e12)
     t_cc = (2.0 * rows * c * c + 4.0 * rows * c) / (f32 * 1e12)
     by = "operations" if t_tc >= t_bytes else "bytes"
@@ -412,15 +422,39 @@ def _check_gdn(label: str, x, gamma, beta, inverse: bool):
     return float(err.max()), rel
 
 
-def _check_streams(name: str, inverse: bool, rng, dev) -> None:
+def _check_gdn_bf16(label: str, x, gamma, beta, inverse: bool):
+    """The kernel's bf16 variant on x rounded to bf16: bitwise the float32
+    variant's output on the same (widened) values, rounded to bf16, and that
+    one within REL_TOL of gdn_plain. Returns (bf16 x, max relative
+    error)."""
+    from epic_tpu_torch.ops.gdn_kernel import gdn
+
+    xb = x.bfloat16()
+    _, rel = _check_gdn(f"{label} (bf16 values)", xb.float(), gamma, beta,
+                        inverse)
+    got = gdn(xb, gamma, beta, inverse)
+    want = gdn(xb.float(), gamma, beta, inverse).bfloat16()
+    if got.dtype is not torch.bfloat16 or not torch.equal(got, want):
+        raise AssertionError(f"{label}: the bf16 output is not the float32 "
+                             "output rounded to bf16")
+    return xb, rel
+
+
+def _check_streams(name: str, inverse: bool, rng, dev,
+                   bf16: bool = False) -> None:
     """As the pipeline launches it: on a side stream, and from two threads
     on two streams at once (4 launches each, interleaved on the card), at
-    batch 4's 393,216 rows. Every result must equal the main stream's
-    bitwise, and that one gdn_plain within REL_TOL."""
+    batch 4's 393,216 rows, float32 or bf16. Every result must equal the
+    main stream's bitwise, and that one gdn_plain within REL_TOL (bf16: the
+    float32 variant's rounded, bitwise)."""
     from epic_tpu_torch.ops.gdn_kernel import gdn
 
     x, g, b = _gdn_data(393_216, GDN_C, rng, dev)
-    _, rel = _check_gdn(f"{name} main stream", x, g, b, inverse)
+    if bf16:
+        name += " bf16"
+        x, rel = _check_gdn_bf16(f"{name} main stream", x, g, b, inverse)
+    else:
+        _, rel = _check_gdn(f"{name} main stream", x, g, b, inverse)
     want = gdn(x, g, b, inverse)
     torch.cuda.synchronize()
     outs, errors = [[], [], []], []
@@ -448,14 +482,19 @@ def _check_streams(name: str, inverse: bool, rng, dev) -> None:
                              "the main stream's bits")
     log(f"[3 kernels] {name} R=393216 on a side stream and from two threads "
         f"on two streams at once (9 launches): bitwise the main stream's, "
-        f"max rel err against gdn_plain {rel:.2e}")
+        f"max rel err against gdn_plain {rel:.2e}"
+        + (", bf16 bitwise the float32 rounded" if bf16 else ""))
 
 
 def phase_kernels(smi: str):
-    """GDN / IGDN against gdn_plain (max relative error <= 1e-5): at the main
-    path's row counts (timed: kernel, plain, the product alone), at ragged
-    row counts, at every width the kernel takes; and rows whose bits do not
-    depend on where they sit in the launch."""
+    """GDN / IGDN against gdn_plain (max relative error <= 1e-5), float32
+    and bf16 I/O (bf16: bitwise the float32 variant's output rounded): at
+    the main path's row counts (timed: kernel in both types, plain, the
+    product alone, the bf16 ``GDN`` module call beside the cast, float32
+    call, cast it replaces), at ragged row counts, at every width the kernel
+    takes; rows whose bits do not depend on where they sit in the launch;
+    side streams and threads."""
+    from epic_tpu_torch.ops.gdn import GDN
     from epic_tpu_torch.ops.gdn_kernel import MAX_CHANNELS, gdn, gdn_plain
 
     dev = torch.device("cuda")
@@ -466,48 +505,88 @@ def phase_kernels(smi: str):
     gen = torch.Generator(device=dev).manual_seed(0)
     rows_out = {}
     for inverse, name in ((False, "gdn"), (True, "igdn")):
+        mod = GDN(c, inverse).to(dev)
         per_shape = []
         for rows in (IGDN_FOLDED_ROWS if inverse else ()) + GDN_ROWS:
             x = torch.randn((rows, c), generator=gen, device=dev)
             abs_err, rel = _check_gdn(f"{name} R={rows}", x, gamma, beta,
                                       inverse)
+            xb, rel_b = _check_gdn_bf16(f"{name} R={rows}", x, gamma, beta,
+                                        inverse)
             # fewer samples where one call takes milliseconds
             reps, inner = (5, 2) if rows > 2_000_000 else (20, 10)
             ms = time_cuda(lambda: gdn(x, gamma, beta, inverse), reps, inner)
+            bf16_ms = time_cuda(lambda: gdn(xb, gamma, beta, inverse), reps,
+                                inner)
             plain_ms = time_cuda(lambda: gdn_plain(x, gamma, beta, inverse),
                                  reps, inner)
             product_ms = time_cuda(lambda: torch.matmul(x * x, gamma), reps,
                                    inner)
+            with torch.no_grad():
+                module_ms = time_cuda(lambda: mod(xb), reps, inner)
+                cast_ms = time_cuda(
+                    lambda: mod(xb.float()).to(torch.bfloat16), reps, inner)
             bound, by, cc_bound = gdn_bounds_ms(rows, c, peak)
-            per_shape.append(dict(rows=rows, max_abs_err=abs_err,
-                                  max_rel_err=rel, ms=ms, plain_ms=plain_ms,
-                                  product_ms=product_ms, bound_ms=bound,
-                                  bound_by=by, cuda_core_bound_ms=cc_bound))
-            log(f"[3 kernels] {name} R={rows} C={c}: max rel err {rel:.2e}, "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, product alone "
-                f"{product_ms:.4f} ms, bound {bound:.4f} ms ({by}), CUDA-core "
-                f"bound {cc_bound:.4f} ms [{smi}]")
+            bf16_bound, bf16_by, _ = gdn_bounds_ms(rows, c, peak, elem=2)
+            per_shape.append(dict(
+                rows=rows, max_abs_err=abs_err, max_rel_err=max(rel, rel_b),
+                ms=ms, plain_ms=plain_ms, product_ms=product_ms,
+                bound_ms=bound, bound_by=by, cuda_core_bound_ms=cc_bound,
+                bf16_ms=bf16_ms, bf16_bound_ms=bf16_bound,
+                bf16_bound_by=bf16_by, module_bf16_ms=module_ms,
+                module_cast_ms=cast_ms))
+            log(f"[3 kernels] {name} R={rows} C={c}: max rel err {rel:.2e} "
+                f"(bf16 values {rel_b:.2e}; bf16 out bitwise the float32 "
+                f"rounded), float32 kernel {ms:.4f} ms (bound {bound:.4f}, "
+                f"{by}), bf16 kernel {bf16_ms:.4f} ms (bound "
+                f"{bf16_bound:.4f}, {bf16_by}), plain {plain_ms:.4f} ms, "
+                f"product alone {product_ms:.4f} ms, CUDA-core bound "
+                f"{cc_bound:.4f} ms; bf16 GDN module {module_ms:.4f} ms "
+                f"against cast, float32 module, cast {cast_ms:.4f} ms [{smi}]")
+            del x, xb
+        torch.cuda.empty_cache()
         worst = 0.0
         for rows in GDN_RAGGED_ROWS:
             x, g, b = _gdn_data(rows, c, rng, dev)
             worst = max(worst, _check_gdn(f"{name} R={rows}", x, g, b,
-                                          inverse)[1])
+                                          inverse)[1],
+                        _check_gdn_bf16(f"{name} R={rows}", x, g, b,
+                                        inverse)[1])
         for width in range(1, MAX_CHANNELS + 1):
             x, g, b = _gdn_data(333, width, rng, dev)
             worst = max(worst, _check_gdn(f"{name} C={width}", x, g, b,
-                                          inverse)[1])
+                                          inverse)[1],
+                        _check_gdn_bf16(f"{name} C={width}", x, g, b,
+                                        inverse)[1])
         x, g, b = _gdn_data(98_304, c, rng, dev)
-        alone = gdn(x[:21].clone(), g, b, inverse)
-        for off in (0, 5, 37):
-            big = x.clone()
-            big[off:off + 21] = x[:21]
-            if not torch.equal(gdn(big, g, b, inverse)[off:off + 21], alone):
-                raise AssertionError(f"{name}: rows at offset {off} of "
-                                     "98,304 differ from the same rows alone")
+        for xt in (x, x.bfloat16()):
+            alone = gdn(xt[:21].clone(), g, b, inverse)
+            for off in (0, 5, 37):
+                big = xt.clone()
+                big[off:off + 21] = xt[:21]
+                if not torch.equal(gdn(big, g, b, inverse)[off:off + 21],
+                                   alone):
+                    raise AssertionError(
+                        f"{name} {xt.dtype}: rows at offset {off} of 98,304 "
+                        "differ from the same rows alone")
+        # a box slot freed or filled out of turn shows as a rare wrong row
+        # or column block: many launches, every one bitwise the first
+        x, g, b = _gdn_data(24_576, c, rng, dev)
+        for xt in (x, x.bfloat16()):
+            want = gdn(xt, g, b, inverse)
+            for _ in range(REPEAT_LAUNCHES // 10):
+                outs = [gdn(xt, g, b, inverse) for _ in range(10)]
+                if not all(torch.equal(y, want) for y in outs):
+                    raise AssertionError(f"{name} {xt.dtype}: launches of "
+                                         "the same input differ")
         log(f"[3 kernels] {name} ragged R {GDN_RAGGED_ROWS} and C = 1.."
-            f"{MAX_CHANNELS} at R=333: max rel err {worst:.2e}; 21 rows "
-            "alone and at offsets 0/5/37 of 98,304 bitwise equal")
+            f"{MAX_CHANNELS} at R=333, float32 and bf16: max rel err "
+            f"{worst:.2e}, bf16 bitwise the float32 rounded; 21 rows alone "
+            "and at offsets 0/5/37 of 98,304 bitwise equal, both types; "
+            f"{REPEAT_LAUNCHES} launches at R=24576 bitwise alike, both "
+            "types")
         _check_streams(name, inverse, rng, dev)
+        _check_streams(name, inverse, rng, dev, bf16=True)
         rows_out[name] = per_shape
     torch.cuda.empty_cache()
     return rows_out
@@ -2682,6 +2761,10 @@ def main(argv=None) -> int:
     smi = phase_environment()
     if only is not None:
         phase_build()
+        if "3" in only:
+            phase_kernels(smi)
+        if "3b" in only:
+            phase_backward_kernel(smi)
         with tempfile.TemporaryDirectory() as work:
             if "16" in only:
                 phase_options(smi, work)
@@ -2746,7 +2829,12 @@ def main(argv=None) -> int:
             "library_ms": None, "rows": top["rows"],
             "launches_by_path": {k: n[name] for k, n in launches.items()},
             "cuda_core_bound_ms": top["cuda_core_bound_ms"],
-            "product_ms": top["product_ms"]})
+            "product_ms": top["product_ms"],
+            # the same kernel with bf16 in and out, and the bf16 GDN module
+            # call beside the cast, float32 call, cast it replaces
+            "bf16_ms": top["bf16_ms"], "bf16_bound_ms": top["bf16_bound_ms"],
+            "module_bf16_ms": top["module_bf16_ms"],
+            "module_cast_ms": top["module_cast_ms"]})
     for name in ("gdn", "igdn"):
         top = bwd_shapes[name][0]  # a first_train step's largest call
         kernels.append({

@@ -1,7 +1,8 @@
 // gdn_common.cuh — what the GDN kernels for Hopper (sm_90a) share: gdn.cu
-// (forward) and gdn_bwd.cu (backward) each include it once. It holds the
-// tile geometry, the 3xTF32 operand split and the mma.sync TF32 product,
-// the cp.async copies of gamma and of 32-row tiles, and the persistent
+// (forward) and gdn_bwd.cu (backward) each include it once. The forward
+// takes from it only the 3xTF32 operand split (the same rounding in both
+// kernels) and kMaxChannels; the rest is the backward's: its tile geometry,
+// the mma.sync TF32 product, the cp.async copy of gamma and the persistent
 // launch's per-device set-up. Everything here has internal linkage, so each
 // source's library keeps its own copy of the per-device state.
 
@@ -18,9 +19,6 @@ constexpr int kThreads = 64 * kWarpsN;
 constexpr int kMaxChannels = 192;
 constexpr int kGammaStride = kMaxChannels + 8;  // floats per gamma row
 constexpr int kFragsPerWarp = kMaxChannels / 8 / kWarpsN;  // 6
-
-__host__ __device__ constexpr int round8(int c) { return (c + 7) & ~7; }
-__host__ __device__ constexpr int tile_stride(int c) { return round8(c) + 4; }
 
 // The TF32 value nearest to v, ties away from zero: what cvt.rna.tf32.f32
 // gives for a finite v, in two integer operations (half a TF32 unit added
@@ -62,10 +60,6 @@ __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;");
 }
 
-__device__ __forceinline__ void cp_async_wait_one() {
-    asm volatile("cp.async.wait_group 1;" ::: "memory");
-}
-
 __device__ __forceinline__ void cp_async_wait_all() {
     asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
@@ -91,43 +85,6 @@ __device__ __forceinline__ void load_gamma(float* gs, const float* gamma,
             cp_async4(gs + r * kGammaStride + q,
                       valid ? gamma + r * c + q : gamma, valid);
         }
-    }
-}
-
-// Start copying tile `t` of a [rows, c] array into `buf` (stride
-// tile_stride(c)), 16 bytes at a time when `vec4`; rows past `rows` are
-// zero-filled, not read; columns c .. round8(c) - 1 are never written.
-__device__ __forceinline__ void load_tile(float* buf, const float* src,
-                                          long long rows, int c, long long t,
-                                          bool vec4) {
-    const int stride = tile_stride(c);
-    const long long r0 = t * kTileRows;
-    if (vec4) {
-        const int per_row = c >> 2;
-        for (int i = threadIdx.x; i < kTileRows * per_row; i += kThreads) {
-            const int r = i / per_row, q = i - r * per_row;
-            const bool valid = r0 + r < rows;
-            const float* s = valid ? src + (r0 + r) * c + 4 * q : src;
-            cp_async16(buf + r * stride + 4 * q, s, valid);
-        }
-    } else {
-        for (int i = threadIdx.x; i < kTileRows * c; i += kThreads) {
-            const int r = i / c, q = i - r * c;
-            const bool valid = r0 + r < rows;
-            const float* s = valid ? src + (r0 + r) * c + q : src;
-            cp_async4(buf + r * stride + q, s, valid);
-        }
-    }
-}
-
-// Zero the K padding (columns c .. round8(c) - 1) of two tiles stacked at
-// `tiles`: the copies never write it, and the k-loop reads it.
-__device__ __forceinline__ void zero_k_padding(float* tiles, int c) {
-    const int pad = round8(c) - c;
-    const int stride = tile_stride(c);
-    for (int i = threadIdx.x; i < 2 * kTileRows * pad; i += kThreads) {
-        const int r = i / pad;  // row of the two stacked tiles
-        tiles[r * stride + c + (i - r * pad)] = 0.0f;
     }
 }
 

@@ -4,9 +4,10 @@ y[i] = x[i] / sqrt(beta[i] + sum_j gamma[j, i] * x[j]^2)   (inverse: * sqrt)
 
 beta and gamma are stored in the non-negative reparametrised form of
 ``entropy.ops.nn_param_*``, as in the JAX package. The normalization math
-runs in float32 whatever the input dtype, through
-``gdn_kernel.gdn_differentiable``: the fused kernel, with its closed-form
-backward when a gradient is asked for.
+runs in float32 and y comes back in x's type (float32 or bf16), as the JAX
+package casts around it (``epic_tpu/ops/gdn.py``), through
+``gdn_kernel.gdn_differentiable``: the fused kernel, which reads and writes
+bf16 itself, with its closed-form backward when a gradient is asked for.
 """
 
 from __future__ import annotations
@@ -32,6 +33,4 @@ class GDN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         beta = nn_param_apply(self.beta, _BETA_MIN)
         gamma = nn_param_apply(self.gamma, 0.0)
-        y = gdn_differentiable(x.float().contiguous(), gamma, beta,
-                               self.inverse)
-        return y.to(x.dtype)
+        return gdn_differentiable(x.contiguous(), gamma, beta, self.inverse)

@@ -3,9 +3,12 @@
 autograd function that joins them.
 
 ``gdn(x, gamma, beta, inverse)`` computes, over the last axis of x,
-``y = x * rsqrt(x^2 @ gamma + beta)`` (GDN) or ``x * sqrt(...)`` (inverse):
-for a tensor on the CPU with ``gdn_plain``; for a CUDA tensor with the
-hand-written kernel (tensor cores, mma.sync 3xTF32), or it raises.
+``y = x * rsqrt(x^2 @ gamma + beta)`` (GDN) or ``x * sqrt(...)`` (inverse),
+in float32 for float32 or bf16 x, and returns y in x's type: for a tensor
+on the CPU with ``gdn_plain``; for a CUDA tensor with the hand-written
+kernel (wgmma 3xTF32, TMA, bf16 read and written as it is), or it raises.
+The backward keeps float32: a bf16 x and its incoming gradient are widened
+for it, and dx is narrowed back.
 ``gdn_backward(x, gamma, beta, g, inverse)`` gives (dx, dgamma, dbeta) in
 closed form: on the CPU with ``gdn_backward_plain``; on a CUDA tensor the
 backward kernel writes dx and the row term u, and dgamma, dbeta are two
@@ -36,25 +39,33 @@ SOURCE = os.path.join(_PKG, "csrc", "gdn.cu")
 BACKWARD_SOURCE = os.path.join(_PKG, "csrc", "gdn_bwd.cu")
 HEADER = os.path.join(_PKG, "csrc", "gdn_common.cuh")  # both sources' helpers
 _BUILD_DIR = os.path.join(_PKG, "_build")
-MAX_CHANNELS = 192  # the kernels keep gamma and two tiles in shared memory
+MAX_CHANNELS = 192  # the kernels keep gamma in shared memory
 _LOCK = threading.Lock()
-_LIBS: dict = {}
+_LIBS: dict = {}   # source -> ctypes library
+_FNS: dict = {}    # entry point -> bound function
 _PTR, _I64, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-# the C entry point of each source and its argument types
+_FWD_ARGS = [_PTR, _PTR, _PTR, _PTR, _I64, _INT, _INT, _PTR]
+# the C entry points: their source and argument types
 _ENTRY = {
-    SOURCE: ("epic_gdn_forward",
-             [_PTR, _PTR, _PTR, _PTR, _I64, _INT, _INT, _PTR]),
-    BACKWARD_SOURCE: ("epic_gdn_backward",
-                      [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _INT, _INT,
-                       _PTR]),
+    "epic_gdn_forward": (SOURCE, _FWD_ARGS),
+    "epic_gdn_forward_bf16": (SOURCE, _FWD_ARGS),
+    "epic_gdn_backward": (BACKWARD_SOURCE,
+                          [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _INT,
+                           _INT, _PTR]),
 }
+# the forward kernel's entry point for each type of x (and y)
+_FORWARD = {torch.float32: "epic_gdn_forward",
+            torch.bfloat16: "epic_gdn_forward_bf16"}
 
 
 def gdn_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
               inverse: bool = False) -> torch.Tensor:
-    """norm[..., i] = beta[i] + sum_j x[..., j]^2 gamma[j, i] (einsum form)."""
-    norm = torch.einsum("...j,ji->...i", x * x, gamma) + beta
-    return x * torch.sqrt(norm) if inverse else x * torch.rsqrt(norm)
+    """norm[..., i] = beta[i] + sum_j x[..., j]^2 gamma[j, i] (einsum form),
+    in float32 whatever x's type; y in x's type."""
+    xf = x.float()
+    norm = torch.einsum("...j,ji->...i", xf * xf, gamma) + beta
+    y = xf * torch.sqrt(norm) if inverse else xf * torch.rsqrt(norm)
+    return y.to(x.dtype)
 
 
 def _nvcc() -> str:
@@ -127,32 +138,39 @@ def build_library(source: str = SOURCE) -> str:
     return path
 
 
-def _entry(source: str):
-    """The bound C entry point of a source's library (built once)."""
-    fn = _LIBS.get(source)
+def _entry(name: str):
+    """A bound C entry point (its source's library built once)."""
+    fn = _FNS.get(name)
     if fn is None:
         with _LOCK:
-            fn = _LIBS.get(source)
+            fn = _FNS.get(name)
             if fn is None:
-                name, argtypes = _ENTRY[source]
-                fn = getattr(ctypes.CDLL(build_library(source)), name)
+                source, argtypes = _ENTRY[name]
+                lib = _LIBS.get(source)
+                if lib is None:
+                    lib = _LIBS[source] = ctypes.CDLL(build_library(source))
+                fn = getattr(lib, name)
                 fn.restype = ctypes.c_int
                 fn.argtypes = argtypes
-                _LIBS[source] = fn
+                _FNS[name] = fn
     return fn
 
 
 def _check(name: str, x: torch.Tensor, gamma: torch.Tensor,
-           beta: torch.Tensor, *others: torch.Tensor) -> None:
-    """Raise unless x (and ``others``, of x's shape), gamma and beta are
-    contiguous float32 tensors on x's CUDA device with 1 <= C <=
-    MAX_CHANNELS."""
+           beta: torch.Tensor, *others: torch.Tensor,
+           x_types=(torch.float32,)) -> None:
+    """Raise unless x (and ``others``, of x's shape and type) is a
+    contiguous tensor of one of ``x_types``, gamma and beta contiguous
+    float32, all on x's CUDA device, with 1 <= C <= MAX_CHANNELS."""
     dev, c, f32 = x.device, x.shape[-1], torch.float32
-    ts = (x, gamma, beta) + others
-    if not all(t.dtype is f32 and t.device == dev and t.is_contiguous()
-               for t in ts):
-        raise ValueError(f"{name}: inputs must be contiguous float32 "
-                         f"tensors on {dev}")
+    if not (x.dtype in x_types
+            and all(t.dtype is x.dtype for t in others)
+            and gamma.dtype is f32 and beta.dtype is f32
+            and all(t.device == dev and t.is_contiguous()
+                    for t in (x, gamma, beta) + others)):
+        kinds = " or ".join(str(t).removeprefix("torch.") for t in x_types)
+        raise ValueError(f"{name}: x must be contiguous {kinds}, gamma and "
+                         f"beta contiguous float32, all on {dev}")
     if (gamma.shape != (c, c) or beta.shape != (c,)
             or any(t.shape != x.shape for t in others)
             or not 0 < c <= MAX_CHANNELS):
@@ -163,14 +181,15 @@ def _check(name: str, x: torch.Tensor, gamma: torch.Tensor,
 
 def gdn(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         inverse: bool = False) -> torch.Tensor:
-    """GDN over the last axis of x ([..., C] float32, contiguous,
-    1 <= C <= MAX_CHANNELS on a CUDA device)."""
+    """GDN over the last axis of x ([..., C] float32 or bf16, contiguous,
+    1 <= C <= MAX_CHANNELS on a CUDA device; gamma, beta float32), computed
+    in float32; y in x's type."""
     dev = x.device
     if dev.type == "cpu":
         return gdn_plain(x, gamma, beta, inverse)
     if dev.type != "cuda":
         raise ValueError(f"gdn: unsupported device {dev}")
-    _check("gdn", x, gamma, beta)
+    _check("gdn", x, gamma, beta, x_types=tuple(_FORWARD))
     index = dev.index
     if index != torch.cuda.current_device():
         with torch.cuda.device(index):
@@ -180,9 +199,10 @@ def gdn(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     # the raw handle of PyTorch's current stream (what
     # torch.cuda.current_stream().cuda_stream gives, without building a
     # Stream object on every call)
-    rc = _entry(SOURCE)(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                        y.data_ptr(), x.numel() // c, c, int(inverse),
-                        torch._C._cuda_getCurrentRawStream(index))
+    rc = _entry(_FORWARD[x.dtype])(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+        x.numel() // c, c, int(inverse),
+        torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"gdn kernel launch failed: CUDA error {rc}")
     gdn.launches.add("igdn" if inverse else "gdn")
@@ -222,7 +242,7 @@ def gdn_backward_rows(x: torch.Tensor, gamma: torch.Tensor,
     c = x.shape[-1]
     dx = torch.empty_like(x)
     u = torch.empty_like(x)
-    rc = _entry(BACKWARD_SOURCE)(
+    rc = _entry("epic_gdn_backward")(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), g.data_ptr(),
         dx.data_ptr(), u.data_ptr(), x.numel() // c, c, int(inverse),
         torch._C._cuda_getCurrentRawStream(index))
@@ -253,7 +273,10 @@ gdn_backward.launches = LaunchCounts("gdn", "igdn")
 
 class _GDNFunction(torch.autograd.Function):
     """``gdn`` forward, ``gdn_backward`` backward (the JAX package's
-    ``gdn_pallas`` custom_vjp)."""
+    ``gdn_pallas`` custom_vjp). x is saved in its own type; the backward
+    widens x and g to float32 (exact for bf16, nothing for float32) and
+    narrows dx to x's type, so the gradients are bitwise those of the same
+    step run on x.float()."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, inverse):
@@ -264,9 +287,10 @@ class _GDNFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, gamma, beta = ctx.saved_tensors
-        dx, dgamma, dbeta = gdn_backward(x, gamma, beta, g.contiguous(),
+        dx, dgamma, dbeta = gdn_backward(x.float(), gamma, beta,
+                                         g.float().contiguous(),
                                          ctx.inverse)
-        return dx, dgamma, dbeta, None
+        return dx.to(x.dtype), dgamma, dbeta, None
 
 
 def gdn_differentiable(x: torch.Tensor, gamma: torch.Tensor,

@@ -1,10 +1,19 @@
 """Where the GDN kernels' time goes, on the card.
 
-Forward: builds copies of ``csrc/gdn.cu`` with clock64 timers around its
-phases (gamma and first-tile load, tile waits, the MMA loop, the epilogue)
-and, as variants, with one change each; times every copy with CUDA events
-at R = 98,304 and 21 (C = 192) and prints block 0's phase clocks and
-whether its output equals the unchanged kernel's bitwise.
+Forward: builds ``csrc/gdn.cu`` with ``-DGDN_PHASES`` (clock64 timers in
+block 0: the producer's waits for a free ring slot; the first consumer
+warpgroup's k-loop, its waits for a full box, the MMA drain after the
+loop and its epilogue) and two timing-only copies: ``-DGDN_MMA_ONLY`` (the
+MMAs on operands made from the step index, no loads or splits) and
+``-DGDN_NO_MMA`` (loads, splits and epilogue, no MMA); times every copy and
+the library that ``ops/gdn_kernel.py`` builds with CUDA events at R =
+98,304 / 393,216 / 5,898,240 (C = 192), float32 and bf16, beside the
+bound, and prints block 0's clocks, the clusters of the grid and the
+tensor-core instructions in each copy's machine code (``cuobjdump``).
+``--fwd-source PATH`` adds another forward source with the same float32
+entry point (the repository's earlier mma.sync kernel, say: put it, with
+its ``gdn_common.cuh``, under the git-ignored ``runs/``), timed in the same
+run and held to the library's output within 1e-5 relative.
 
 Backward: builds ``csrc/gdn_bwd.cu`` with ``-DGDN_PHASES`` (its clock64
 timers: gamma and the first tile, tile waits, product 1, epilogue 1,
@@ -18,13 +27,7 @@ copy's dx and u equal the library's bitwise. ``--bwd-source PATH`` adds
 another backward source (an earlier version, say), timed in the same run.
 
     python3 -m epic_tpu_torch.tools.gdn_phases [--part forward|backward]
-        [--bwd-source PATH ...]
-
-Forward variants: ``split4`` hands the MMA the unmasked hi operand (the MMA
-reads only its TF32 bits), one integer operation less per split;
-``16_warps`` runs 16 warps of 3 n-fragments instead of 8 of 6;
-``mma_only`` keeps the k-loop's MMAs and drops its loads and splits (its
-output is not GDN's: it times the MMAs alone).
+        [--fwd-source PATH ...] [--bwd-source PATH ...]
 """
 
 from __future__ import annotations
@@ -37,116 +40,58 @@ import subprocess
 import numpy as np
 import torch
 
-from ..ops.gdn_kernel import (BACKWARD_SOURCE, HEADER, SOURCE, _BUILD_DIR,
-                               _nvcc, gdn_backward_rows)
+from ..ops.gdn_kernel import (_FWD_ARGS, BACKWARD_SOURCE, SOURCE, _BUILD_DIR,
+                               _nvcc, gdn, gdn_backward_rows, gdn_plain)
 
-_TIMERS = [
-    ("#include <cstdint>\n",
-     "#include <cstdint>\n__device__ long long g_phase[5];\n"),
-    ("    extern __shared__ __align__(16) float smem[];\n",
-     "    extern __shared__ __align__(16) float smem[];\n"
-     "    const long long t_start = clock64();\n"
-     "    long long t_fill = 0, t_wait = 0, t_mma = 0, t_epi = 0;\n"
-     "    long long t_mark;\n"),
-    ("        cp_async_wait_one();\n        __syncthreads();\n",
-     "        t_mark = clock64();\n"
-     "        cp_async_wait_one();\n        __syncthreads();\n"
-     "        if (it == 0) t_fill = clock64() - t_start;\n"
-     "        else t_wait += clock64() - t_mark;\n"
-     "        t_mark = clock64();\n"),
-    ("        // epilogue: rows",
-     "        t_mma += clock64() - t_mark;\n        t_mark = clock64();\n"
-     "        // epilogue: rows"),
-    ("        __syncthreads();  // the next prefetch may overwrite this "
-     "buffer\n    }\n",
-     "        __syncthreads();\n"
-     "        t_epi += clock64() - t_mark;\n    }\n"
-     "    if (threadIdx.x == 0 && blockIdx.x == 0) {\n"
-     "        g_phase[0] = t_fill; g_phase[1] = t_wait; g_phase[2] = t_mma;\n"
-     "        g_phase[3] = t_epi; g_phase[4] = clock64() - t_start;\n    }\n"),
-]
-_READ = ('\nextern "C" int epic_gdn_phases(long long* out) {\n'
-         '    return (int)cudaMemcpyFromSymbol(out, g_phase, '
-         'sizeof(long long) * 5);\n}\n')
-_LOOP_OPERANDS = """            uint32_t ahi[4], alo[4];
-            const float* xk = xa + 8 * ks;
-            const float v0 = xk[0], v1 = xk[8 * stride];
-            const float v2 = xk[4], v3 = xk[8 * stride + 4];
-            split(v0 * v0, ahi[0], alo[0]);
-            split(v1 * v1, ahi[1], alo[1]);
-            split(v2 * v2, ahi[2], alo[2]);
-            split(v3 * v3, ahi[3], alo[3]);
-            // B fragment (k = tig, tig + 4; n = gid) of n-fragment f
-            const float* gk = gs + (8 * ks + tig) * kGammaStride + gid;
-            uint32_t bhi[kFragsPerWarp][2], blo[kFragsPerWarp][2];
-#pragma unroll
-            for (int j = 0; j < kFragsPerWarp; ++j) {
-                const float* g = gk + 8 * (f0 + kWarpsN * j);
-                split(g[0], bhi[j][0], blo[j][0]);
-                split(g[4 * kGammaStride], bhi[j][1], blo[j][1]);
-            }
-"""
-_MMA_ONLY_OPERANDS = """            const uint32_t v = 0x3c000000u + ks + lane;
-            uint32_t ahi[4] = {v, v, v, v}, alo[4] = {v, v, v, v};
-            uint32_t bhi[kFragsPerWarp][2], blo[kFragsPerWarp][2];
-#pragma unroll
-            for (int j = 0; j < kFragsPerWarp; ++j)
-                bhi[j][0] = bhi[j][1] = blo[j][0] = blo[j][1] = v + j;
-"""
-_VARIANTS = {
-    "kernel": [],
-    "split4": [("    hi = to_tf32(v);\n"
-                "    lo = to_tf32(v - __uint_as_float(hi));\n",
-                "    hi = __float_as_uint(v) + 0x1000u;\n"
-                "    lo = __float_as_uint(v - __uint_as_float("
-                "hi & 0xffffe000u)) + 0x1000u;\n")],
-    "16_warps": [("constexpr int kWarpsN = 4;",
-                  "constexpr int kWarpsN = 8;")],
-    # timing only: the k-loop keeps its 18 MMAs per step but no loads or
-    # splits (operands from the step index), so its output differs
-    "mma_only": [(_LOOP_OPERANDS, _MMA_ONLY_OPERANDS)],
-}
+_NVCC = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# the forward copies: name -> nvcc flags (the repository's source)
+_FWD_COPIES = {"phases": ["-DGDN_PHASES"],
+               "mma_only": ["-DGDN_PHASES", "-DGDN_MMA_ONLY"],
+               "no_mma": ["-DGDN_PHASES", "-DGDN_NO_MMA"]}
+_FWD_PHASE_NAMES = ("producer slot waits", "consumer k-loop (its waits "
+                    "excluded)", "consumer box waits", "MMA drain",
+                    "epilogue")
+FWD_ROWS = (98_304, 393_216, 5_898_240)
+FWD_TOL = 1e-5
+# PTX-level instructions of the tensor cores and their waits, as cuobjdump
+# names them
+_SASS = ("HGMMA", "HMMA", "WARPGROUP.DEPBAR", "WARPGROUP.ARRIVE", "UTMALDG",
+         "SYNCS")
 
 
-def _edit(text: str, edits) -> str:
-    for old, new in edits:
-        if old not in text:
-            raise RuntimeError(f"csrc/gdn.cu (with gdn_common.cuh) no "
-                               f"longer holds {old[:40]!r}")
-        text = text.replace(old, new)
-    return text
-
-
-def build():
-    """Compile every variant (one nvcc each, all started together); returns
-    {name: ctypes library}."""
-    # the shared header inlined, so that the edits reach its helpers too
-    src = _edit(open(SOURCE).read(), [('#include "gdn_common.cuh"\n',
-                                       open(HEADER).read())])
-    src = _edit(src, _TIMERS) + _READ
-    out = os.path.join(_BUILD_DIR, "phases")
+def _compile(jobs: dict, out: str) -> dict:
+    """nvcc for each {name: (source, flags)}, all started together; prints
+    ptxas's registers, spills and warnings; returns {name: library path}."""
     os.makedirs(out, exist_ok=True)
     procs = {}
-    for name, edits in _VARIANTS.items():
-        cu = os.path.join(out, f"{name}.cu")
-        with open(cu, "w") as f:
-            f.write(_edit(src, edits))
+    for name, (src, flags) in jobs.items():
         procs[name] = subprocess.Popen(
-            [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", cu,
-             "-o", os.path.join(out, f"lib{name}.so")],
+            [_nvcc(), *_NVCC, *flags, src, "-o",
+             os.path.join(out, f"lib{name}.so")],
             stderr=subprocess.PIPE, text=True)
-    libs = {}
+    paths = {}
     for name, proc in procs.items():
         err = proc.communicate()[1]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{err}")
-        lib = ctypes.CDLL(os.path.join(out, f"lib{name}.so"))
-        lib.epic_gdn_forward.restype = ctypes.c_int
-        lib.epic_gdn_forward.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        libs[name] = lib
-    return libs
+        for line in err.splitlines():
+            if any(k in line for k in ("registers", "spill", "arning")):
+                print(f"ptxas {name}: {line.strip()}", flush=True)
+        paths[name] = os.path.join(out, f"lib{name}.so")
+    return paths
+
+
+def _sass_counts(path: str) -> str:
+    """Counts of the tensor-core, TMA and barrier instructions in a
+    library's machine code (cuobjdump beside nvcc), or why not."""
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    proc = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        return "cuobjdump failed"
+    text = proc.stdout
+    return ", ".join(f"{k} {text.count(k)}" for k in _SASS)
 
 
 def _ms(fn, n: int = 50) -> float:
@@ -162,6 +107,95 @@ def _ms(fn, n: int = 50) -> float:
     return start.elapsed_time(end) / n
 
 
+def _fwd_bound_ms(rows: int, c: int, elem: int) -> float:
+    """max(3 x 2RC^2 at 495 TFLOP/s, (2 elem RC + 4C^2 + 4C) B at 3.35
+    TB/s), the published H100 SXM peaks."""
+    ops = 3 * 2.0 * rows * c * c / 495e12
+    io = (2.0 * elem * rows * c + 4 * c * c + 4 * c) / 3.35e12
+    return 1e3 * max(ops, io)
+
+
+def run_forward(extra_sources=()) -> None:
+    out = os.path.join(_BUILD_DIR, "phases")
+    jobs = {n: (SOURCE, f) for n, f in _FWD_COPIES.items()}
+    for i, path in enumerate(extra_sources):
+        jobs[f"fwd_extra{i}"] = (os.path.abspath(path), [])
+    paths = _compile(jobs, out)
+    libs = {}
+    for name, path in paths.items():
+        lib = ctypes.CDLL(path)
+        entries = {}
+        for dtype, entry in ((torch.float32, "epic_gdn_forward"),
+                             (torch.bfloat16, "epic_gdn_forward_bf16")):
+            if hasattr(lib, entry):
+                fn = getattr(lib, entry)
+                fn.restype, fn.argtypes = ctypes.c_int, _FWD_ARGS
+                entries[dtype] = fn
+        libs[name] = (lib, entries)
+        print(f"{name}: {_sass_counts(path)}", flush=True)
+    for i, path in enumerate(extra_sources):
+        print(f"fwd_extra{i}: {path}", flush=True)
+    rng = np.random.default_rng(0)
+    c = 192
+    gamma = torch.as_tensor((0.1 * np.eye(c) + 0.01 * rng.random((c, c)))
+                            .astype(np.float32), device="cuda")
+    beta = torch.as_tensor((1.0 + 0.1 * rng.random(c)).astype(np.float32),
+                           device="cuda")
+    for rows in FWD_ROWS:
+        x32 = torch.randn((rows, c), device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(0))
+        n = 10 if rows > 1_000_000 else 50
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            tag = "f32 " if dtype is torch.float32 else "bf16"
+            bound = _fwd_bound_ms(rows, c, x.element_size())
+            for inverse in (0, 1):
+                kind = "igdn" if inverse else "gdn "
+                want = gdn(x, gamma, beta, bool(inverse))
+                plain = gdn_plain(x, gamma, beta, bool(inverse)).float()
+                ms = _ms(lambda: gdn(x, gamma, beta, bool(inverse)), n)
+                print(f"R={rows} {tag} {kind} library   {ms:.4f} ms "
+                      f"(bound {bound:.4f})", flush=True)
+                for name, (lib, entries) in libs.items():
+                    fn = entries.get(dtype)
+                    if fn is None:
+                        continue
+                    y = torch.empty_like(x)
+
+                    def launch():
+                        rc = fn(x.data_ptr(), gamma.data_ptr(),
+                                beta.data_ptr(), y.data_ptr(), rows, c,
+                                inverse,
+                                torch.cuda.current_stream().cuda_stream)
+                        if rc:
+                            raise RuntimeError(f"{name}: CUDA error {rc}")
+
+                    ms = _ms(launch, n)
+                    launch()
+                    torch.cuda.synchronize()
+                    rel = float(((y.float() - plain).abs()
+                                 / plain.abs().clamp_min(1e-30)).max())
+                    line = (f"R={rows} {tag} {kind} {name:9s} {ms:.4f} ms, "
+                            f"equal to the library's: "
+                            f"{torch.equal(y, want)}, max rel err against "
+                            f"gdn_plain {rel:.2e}")
+                    if name.startswith("fwd_extra") and not rel <= FWD_TOL:
+                        raise AssertionError(line)
+                    if hasattr(lib, "epic_gdn_fwd_phases"):
+                        clk = (ctypes.c_longlong * 5)()
+                        lib.epic_gdn_fwd_phases(clk)
+                        line += "; block 0 clocks: " + ", ".join(
+                            f"{p} {v}" for p, v in zip(_FWD_PHASE_NAMES,
+                                                       clk))
+                    if hasattr(lib, "epic_gdn_forward_clusters"):
+                        line += (f"; clusters "
+                                 f"{lib.epic_gdn_forward_clusters(int(dtype is torch.bfloat16), inverse)}")
+                    print(line, flush=True)
+            del x
+        del x32
+        torch.cuda.empty_cache()
+
+
 # the backward copies: name -> (source, extra nvcc flags)
 _BWD_PHASES = ["-DGDN_PHASES"]
 _BWD_MMA_ONLY = ["-DGDN_PHASES", "-DGDN_MMA_ONLY"]
@@ -174,29 +208,14 @@ BWD_ROWS = (262_144, 65_536, 16_384)
 def build_backward(extra_sources=()):
     """Compile the backward copies (one nvcc each, all started together);
     returns {name: (ctypes library, has phase clocks)}."""
-    out = os.path.join(_BUILD_DIR, "phases")
-    os.makedirs(out, exist_ok=True)
     jobs = {"bwd": (BACKWARD_SOURCE, _BWD_PHASES),
             "bwd_mma_only": (BACKWARD_SOURCE, _BWD_MMA_ONLY)}
     for i, path in enumerate(extra_sources):
         jobs[f"extra{i}"] = (os.path.abspath(path), _BWD_PHASES)
-    procs = {}
-    for name, (src, flags) in jobs.items():
-        procs[name] = subprocess.Popen(
-            [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-             "-Xptxas", "-v", *flags, src, "-o",
-             os.path.join(out, f"lib{name}.so")],
-            stderr=subprocess.PIPE, text=True)
+    paths = _compile(jobs, os.path.join(_BUILD_DIR, "phases"))
     libs = {}
-    for name, proc in procs.items():
-        err = proc.communicate()[1]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{err}")
-        for line in err.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}", flush=True)
-        lib = ctypes.CDLL(os.path.join(out, f"lib{name}.so"))
+    for name, path in paths.items():
+        lib = ctypes.CDLL(path)
         lib.epic_gdn_backward.restype = ctypes.c_int
         lib.epic_gdn_backward.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -275,6 +294,9 @@ def main(argv=None) -> int:
     ap.add_argument("--bwd-source", action="append", default=[],
                     help="another backward source to time beside the "
                          "repository's")
+    ap.add_argument("--fwd-source", action="append", default=[],
+                    help="another forward source (float32 entry point "
+                         "epic_gdn_forward) to time beside the repository's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("gdn_phases: no CUDA device")
@@ -284,46 +306,8 @@ def main(argv=None) -> int:
     if args.part != "forward":
         run_backward(args.bwd_source)
     if args.part != "backward":
-        run_forward()
+        run_forward(args.fwd_source)
     return 0
-
-
-def run_forward() -> None:
-    libs = build()
-    rng = np.random.default_rng(0)
-    c = 192
-    gamma = torch.as_tensor((0.1 * np.eye(c) + 0.01 * rng.random((c, c)))
-                            .astype(np.float32), device="cuda")
-    beta = torch.as_tensor((1.0 + 0.1 * rng.random(c)).astype(np.float32),
-                           device="cuda")
-    for rows in (98_304, 21):
-        x = torch.as_tensor(rng.normal(0, 1, (rows, c)).astype(np.float32),
-                            device="cuda")
-        outs = {}
-        for name, lib in libs.items():
-            for inverse in (0, 1):
-                y = torch.empty_like(x)
-
-                def launch():
-                    rc = lib.epic_gdn_forward(
-                        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                        y.data_ptr(), rows, c, inverse,
-                        torch.cuda.current_stream().cuda_stream)
-                    if rc:
-                        raise RuntimeError(f"launch failed: CUDA error {rc}")
-
-                ms = _ms(launch)
-                launch()
-                torch.cuda.synchronize()
-                outs[name, inverse] = y
-                clk = (ctypes.c_longlong * 5)()
-                lib.epic_gdn_phases(clk)
-                same = torch.equal(y, outs["kernel", inverse])
-                print(f"R={rows} {name:9s} {'igdn' if inverse else 'gdn '} "
-                      f"{ms:.4f} ms, equal to the kernel's output: {same}; "
-                      f"block 0 clocks: gamma + first tile {clk[0]}, tile "
-                      f"waits {clk[1]}, MMA loop {clk[2]}, epilogue "
-                      f"{clk[3]}, total {clk[4]}", flush=True)
 
 
 if __name__ == "__main__":

@@ -3,7 +3,13 @@ plain version (max relative error 1e-5) at the main path's shapes (those
 of ``progressive_decode_all``, whose 15 levels fold into the batch,
 included), at ragged row counts and at every width it takes, rows whose
 bits do not depend on where they sit, and tiny ``pic`` and ``rem`` codec
-round trips through the kernel. The backward kernel against its plain
+round trips through the kernel. Its bf16 variant at the same shapes, widths,
+row counts and offsets, on side streams and from two threads: bitwise the
+float32 variant's output rounded to bf16; 200 launches of each kind
+bitwise alike; the bf16 ``GDN`` module call
+bitwise the cast, float32 call, cast that it replaces, with as many kernel
+launches as a float32 call; x at an address TMA cannot take; bf16 training
+gradients bitwise those of the float32 path. The backward kernel against its plain
 version (dx and u within 1e-5 of their largest magnitude) and ``GDN``'s
 gradients through both kernels against autograd through ``gdn_plain``
 (dgamma / dbeta within 1e-4: sums over every row in another order), at
@@ -21,10 +27,11 @@ import pytest
 import torch
 
 import epic_tpu_torch as et
+from epic_tpu_torch.ops.gdn import GDN
 from epic_tpu_torch.ops.gdn_kernel import (MAX_CHANNELS, gdn, gdn_backward,
                                            gdn_backward_rows,
                                            gdn_backward_rows_plain,
-                                           gdn_plain)
+                                           gdn_differentiable, gdn_plain)
 
 
 def _need_cuda():
@@ -117,6 +124,13 @@ def test_kernel_rejects_what_it_cannot_take():
     with pytest.raises(ValueError):
         gdn(x[:, :8].half(), torch.zeros(8, 8, device="cuda"),
             torch.ones(8, device="cuda"))
+    # float32 or bf16 x only, contiguous; gamma and beta float32
+    x, gamma, beta = _data(8, 16)
+    for bad in (x.double(), x.t(), x.bfloat16().t()):
+        with pytest.raises(ValueError):
+            gdn(bad, gamma, beta)
+    with pytest.raises(ValueError):
+        gdn(x.bfloat16(), gamma.bfloat16(), beta)
 
 
 @pytest.mark.cuda
@@ -162,6 +176,185 @@ def test_tiny_rem_codec_through_the_kernel():
     assert gdn.launches["igdn"] == before + 9
     # float32: the folded batch may run other cuDNN algorithms
     assert (out["x_hat"] - torch.stack(levels)).abs().max().item() <= 1e-4
+
+
+# every row count the main path launches GDN or IGDN at (C = 192), and the
+# folded rows of progressive_decode_all
+MAIN_ROWS = [5_898_240, 1_474_560, 393_216, 368_640, 262_144, 196_608,
+             98_304, 92_160, 65_536, 49_152, 24_576, 16_384, 12_288, 6_144,
+             4_096, 21]
+
+
+def _randn(rows, c, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((rows, c), device="cuda", generator=g)
+
+
+def _check_bf16(x, gamma, beta, inverse, label=""):
+    """bf16 x through the kernel: bitwise the float32 variant's output on
+    the widened x, rounded to bf16; that one within 1e-5 of gdn_plain."""
+    xb = x.bfloat16()
+    y32 = gdn(xb.float(), gamma, beta, inverse)
+    rel = _max_rel(y32, gdn_plain(xb.float(), gamma, beta, inverse))
+    assert rel <= 1e-5, f"{label}: {rel:.3e}"
+    yb = gdn(xb, gamma, beta, inverse)
+    assert yb.dtype is torch.bfloat16
+    assert torch.equal(yb, y32.bfloat16()), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", MAIN_ROWS)
+@pytest.mark.parametrize("inverse", [False, True], ids=["gdn", "igdn"])
+def test_kernel_bf16_is_the_float32_rounded(rows, inverse):
+    _need_cuda()
+    _, gamma, beta = _data(1, 192, seed=5)
+    kind = "igdn" if inverse else "gdn"
+    before = gdn.launches[kind]
+    _check_bf16(_randn(rows, 192, rows), gamma, beta, inverse, f"R={rows}")
+    assert gdn.launches[kind] == before + 2
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True], ids=["gdn", "igdn"])
+def test_kernel_bf16_every_width_and_ragged_rows(inverse):
+    _need_cuda()
+    for c in range(1, MAX_CHANNELS + 1):
+        x, gamma, beta = _data(333, c, seed=c)
+        _check_bf16(x, gamma, beta, inverse, f"C={c}")
+    for rows in (1, 31, 33, 98_309):
+        x, gamma, beta = _data(rows, 192, seed=3)
+        _check_bf16(x, gamma, beta, inverse, f"R={rows}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True], ids=["gdn", "igdn"])
+def test_kernel_bf16_rows_do_not_depend_on_their_position(inverse):
+    _need_cuda()
+    x, gamma, beta = _data(98_304, 192, seed=4)
+    x = x.bfloat16()
+    rows = x[:21].clone()
+    alone = gdn(rows, gamma, beta, inverse)
+    for off in (0, 5, 37):
+        big = x.clone()
+        big[off:off + 21] = rows
+        assert torch.equal(gdn(big, gamma, beta, inverse)[off:off + 21],
+                           alone), f"offset {off}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("inverse", [False, True], ids=["gdn", "igdn"])
+def test_kernel_side_streams_and_threads_bitwise(dtype, inverse):
+    """As the sweep pipeline launches it: on a side stream, and from two
+    threads on two streams at once, bitwise the main stream's result."""
+    import threading
+
+    _need_cuda()
+    x, gamma, beta = _data(393_216, 192, seed=6)
+    x = x.to(dtype)
+    want = gdn(x, gamma, beta, inverse)
+    torch.cuda.synchronize()
+    outs = [[] for _ in range(3)]
+
+    def launch(k, reps):
+        s = torch.cuda.Stream()
+        with torch.cuda.stream(s):
+            outs[k] = [gdn(x, gamma, beta, inverse) for _ in range(reps)]
+        s.synchronize()
+
+    launch(0, 1)
+    threads = [threading.Thread(target=launch, args=(k, 4)) for k in (1, 2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert sum(len(o) for o in outs) == 9
+    assert all(torch.equal(y, want) for o in outs for y in o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [24_576, 98_304])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_kernel_many_launches_bitwise(rows, dtype):
+    """200 launches of each kind give the same bits: a box slot freed or
+    filled out of turn shows as a rare wrong row or column block."""
+    _need_cuda()
+    x, gamma, beta = _data(rows, 192, seed=12)
+    x = x.to(dtype)
+    for inverse in (False, True):
+        want = gdn(x, gamma, beta, inverse)
+        outs = [gdn(x, gamma, beta, inverse) for _ in range(200)]
+        assert all(torch.equal(y, want) for y in outs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_kernel_unaligned_x_takes_the_load_path(dtype):
+    """x one element past an aligned address (a contiguous view): no TMA
+    for it, the kernel's own load path, the same bits."""
+    _need_cuda()
+    x, gamma, beta = _data(2_000, 192, seed=8)
+    flat = torch.empty(2_000 * 192 + 1, device="cuda", dtype=dtype)
+    shifted = flat[1:].view(2_000, 192)
+    shifted.copy_(x.to(dtype))
+    for inverse in (False, True):
+        assert torch.equal(gdn(shifted, gamma, beta, inverse),
+                           gdn(x.to(dtype), gamma, beta, inverse))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True], ids=["gdn", "igdn"])
+def test_module_bf16_has_no_casts(inverse):
+    """The bf16 GDN module call: bitwise the cast, float32 call, cast it
+    replaces, and as many kernel launches as a float32 call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _need_cuda()
+    mod = GDN(192, inverse).cuda()
+    with torch.no_grad():
+        mod.gamma.add_(0.01)
+        x = _randn(8 * 16 * 24, 192, 9).view(8, 16, 24, 192)
+        xb = x.bfloat16()
+        want = mod(xb.float()).bfloat16()
+        got = mod(xb)
+        assert got.dtype is torch.bfloat16 and torch.equal(got, want)
+        kernels = []
+        for inp in (x, xb):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                mod(inp)
+                torch.cuda.synchronize()
+            kernels.append(sum(e.count for e in prof.key_averages()
+                               if e.device_type.name == "CUDA"))
+    assert kernels[0] == kernels[1] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True], ids=["gdn", "igdn"])
+def test_bf16_gradients_bitwise_the_float32_path(inverse):
+    """Training through bf16 x: dx, dgamma, dbeta bitwise those of the
+    float32 path on the same values (the backward widens x and g)."""
+    _need_cuda()
+    x, gamma, beta = _data(4_096, 192, seed=10)
+    xb = x.bfloat16()
+    w = _randn(4_096, 192, 11)
+    grads = []
+    for path in ("bf16", "float32"):
+        xi = xb.clone().requires_grad_(True)
+        gi = gamma.clone().requires_grad_(True)
+        bi = beta.clone().requires_grad_(True)
+        if path == "bf16":
+            y = gdn_differentiable(xi, gi, bi, inverse)
+        else:
+            y = gdn_differentiable(xi.float(), gi, bi, inverse).bfloat16()
+        (y.float() * w).sum().backward()
+        grads.append((xi.grad, gi.grad, bi.grad))
+    assert grads[0][0].dtype is torch.bfloat16
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
 
 
 def _bwd_rel(got, want):
