@@ -12,7 +12,7 @@ Phases, one progress line each (flush=True):
     ``tests/fixtures/z_tables_jax.npz`` (the constructor's weights and a
     seeded draw, 192 channels, their arrays stored beside them), equal bit
     for bit to the JAX package's tables stored there;
- 2. build: the GDN kernel (wgmma, TMA, clusters) and its backward (nvcc,
+ 2. build: the GDN kernel and its backward (wgmma, TMA, clusters; nvcc,
     sm_90a) and the host rANS library (g++), started together; ptxas's
     registers, spills and warnings;
  3. kernels: fused GDN and inverse GDN against ``gdn_plain``, max relative
@@ -33,15 +33,22 @@ Phases, one progress line each (flush=True):
     stream and from two threads on two streams at once, bitwise the main
     stream's; 300 launches of one 24,576-row input bitwise alike; every
     check in both types;
- 3b. backward kernel: GDN's and IGDN's backward (``gdn_backward_rows``: dx
-    and u) against ``gdn_backward_rows_plain``, and ``gdn_backward``'s
-    (dx, dgamma, dbeta) against autograd through ``gdn_plain``, norm-wise
-    (max abs error over max abs value): dx and u within 1e-5, dgamma and
-    dbeta within 1e-4; at a training step's rows (262,144 / 65,536 /
-    16,384 / 4,096, timed beside the plain version, the whole
-    ``gdn_backward`` with its dgamma / dbeta reductions, the bound and the
-    mma.sync floor at the SM clock read under load), at ragged R, at every
-    C (R = 333), and on a side stream bitwise;
+ 3b. backward: GDN's and IGDN's backward (``gdn_backward_rows``: dx and u)
+    against ``gdn_backward_rows_plain``, and ``gdn_backward``'s (dx,
+    dgamma, dbeta; the kernel and its reduction) against autograd through
+    ``gdn_plain``, norm-wise (max abs error over max abs value): dx and u
+    within 1e-5, dgamma and dbeta within 1e-4; the bf16 variant bitwise the
+    float32 path's on the widened values (dx rounded once). At a training
+    step's rows (262,144 / 65,536 / 16,384 / 4,096) with CUDA-event times of
+    the whole ``gdn_backward`` in float32 and bf16, the kernel with u
+    written, the reduction alone (beside ``torch.sum``), their plain
+    versions, the three-product bound of each type beside the two-product
+    one of the kernel it replaced and the wgmma floor at the SM clock read
+    under load; at ragged R and at every C (R = 333) in both types; 100
+    launches of one input bitwise alike and a side stream bitwise, both
+    types; the backward through autograd, float32 and bf16, launches its
+    kernel and its reduction once each (their counts) and torch.profiler
+    records no other kernel (no cast);
  4. ``pic`` path: the full-width ``pic`` model (N=192, M=640, division
     (320, 640), dim_chunk 32, bf16 compute, random weights from a seed) on
     a seeded synthetic 768x512 image (``epic_tpu_torch/tools/workload.py``):
@@ -249,12 +256,13 @@ GDN_BWD_ROWS = (262_144, 65_536, 16_384, 4_096)  # 4,096: phase 14
 # dx and u of the backward kernel against the plain closed form, norm-wise
 # (max abs error over max abs value)
 BWD_REL_TOL = 1e-5
-# dgamma and dbeta against autograd: sums over every row, reduced by cuBLAS
-# from the kernel's u and by autograd from its own
+# dgamma and dbeta against autograd: sums over every row, in the kernel's
+# tensor cores and its reduction, and by autograd in its own order
 WGRAD_REL_TOL = 1e-4
-# mma.sync TF32 m16n8k8 issues at one per 8 clocks per SM sub-partition on
-# the H100 (python3 -m epic_tpu_torch.tools.gdn_phases, the mma_only copies)
-MMA_CLOCKS = 8
+# clocks of one SM's tensor cores per m64n8k8 TF32 slice of a wgmma at the
+# TF32 peak (1,024 multiply-adds a clock an SM: 495 TFLOP/s on 132 SMs at
+# 1.83 GHz)
+MMA_CLOCKS = 4
 # progressive_decode_all against the per-level decode, x_hat in [0, 1]. cuDNN
 # picks other convolution kernels for the folded batch (15 levels) than for
 # batch 1, and they round bf16 work differently; with cuDNN off the two
@@ -592,35 +600,52 @@ def phase_kernels(smi: str):
     return rows_out
 
 
-def gdn_bwd_bounds_ms(rows: int, c: int, peak: tuple):
-    """Least time for the backward kernel over [rows, c]: x and g read once,
-    dx and u written once, gamma and beta read once (16RC + 4C^2 + 4C
-    bytes) at the memory rate, against two products of 2RC^2 in 3xTF32 at
-    the TF32 peak. Returns (ms, what binds it)."""
+def gdn_bwd_bounds_ms(rows: int, c: int, peak: tuple, elem: int = 4):
+    """Least time for the whole backward over [rows, c], (ms, what binds
+    it): x and g read once and dx written once (`elem` bytes each: 4
+    float32, 2 bf16), gamma and beta read once, at the memory rate, against
+    three products of 2RC^2 (n, u @ gamma^T, (x^2)^T @ u) in 3xTF32 at the
+    TF32 peak."""
     _, tf32, bw = peak
-    t_bytes = 4.0 * (4 * rows * c + c * c + c) / (bw * 1e12)
-    t_ops = 2 * 3 * 2.0 * rows * c * c / (tf32 * 1e12)
+    t_bytes = (3.0 * elem * rows * c + 4.0 * (c * c + c)) / (bw * 1e12)
+    t_ops = 3 * 3 * 2.0 * rows * c * c / (tf32 * 1e12)
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
 
-def gdn_bwd_mma_floor_ms(rows: int, c: int, sm_mhz: float) -> float:
-    """The least time of the backward kernel's mma.sync 3xTF32 design: its
-    busiest SM walks ceil(tiles / SMs) 32-row tiles of 2 products x 3
-    passes x 2 x ceil(C / 8)^2 MMAs, four sub-partitions issuing one each
-    MMA_CLOCKS clocks, at the SM clock nvidia-smi reads under load."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    tiles = -(-rows // 32)
-    mmas = 2 * 3 * 2 * (-(-c // 8)) ** 2
-    clocks = -(-tiles // sms) * mmas * MMA_CLOCKS / 4
+def gdn_bwd_two_product_bound_ms(rows: int, c: int, peak: tuple) -> float:
+    """The bound of the kernel before dgamma and dbeta were folded in (PR
+    12's mma.sync kernel: dx and u): x and g read, dx and u written in
+    float32 (16RC + 4C^2 + 4C bytes) against two 3xTF32 products."""
+    _, tf32, bw = peak
+    t_bytes = 4.0 * (4 * rows * c + c * c + c) / (bw * 1e12)
+    t_ops = 2 * 3 * 2.0 * rows * c * c / (tf32 * 1e12)
+    return max(t_bytes, t_ops) * 1e3
+
+
+def gdn_bwd_mma_floor_ms(rows: int, clusters: int, sm_mhz: float) -> float:
+    """The least time of the backward kernel's wgmma design: its busiest
+    cluster walks ceil(tiles / clusters) 64-row tiles, and each block issues
+    per tile 3 products x 3 passes x 24 k-steps of m64n48k8 TF32 wgmma, each
+    6 x MMA_CLOCKS clocks of its SM's tensor cores, at the SM clock
+    nvidia-smi reads under load. The kernel pads C to 192, so the floor
+    does not depend on C."""
+    tiles = -(-rows // 64)
+    clocks = -(-tiles // clusters) * 3 * 3 * 24 * 6 * MMA_CLOCKS
     return clocks / (sm_mhz * 1e3)
+
+
+def gdn_bwd_reduce_bound_ms(parts: int, c: int, peak: tuple) -> float:
+    """Least time of the reduction kernel: the (c + 1) x c floats it reads
+    of each partial and the (c + 1) x c it writes, at the memory rate."""
+    return 4.0 * (parts + 1) * (c + 1) * c / (peak[2] * 1e12) * 1e3
 
 
 def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
     """max |got - want| over max |want| (norm-wise: dx sums terms of both
     signs and may cancel to 0, where an elementwise ratio means nothing)."""
-    return float((got - want).abs().max() / want.abs().max().clamp_min(
-        1e-30))
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
 
 
 def _check_gdn_bwd(label: str, x, gamma, beta, g, inverse: bool,
@@ -655,15 +680,70 @@ def _check_gdn_bwd(label: str, x, gamma, beta, g, inverse: bool,
     return errs
 
 
+def _check_gdn_bwd_bf16(label: str, x, gamma, beta, g, inverse: bool,
+                        autograd: bool = True):
+    """The backward on x and g rounded to bf16: the float32 kernel on the
+    widened values held as ``_check_gdn_bwd`` holds it, and the bf16
+    variant bitwise that one (dx rounded once, u, dgamma and dbeta equal).
+    Returns (bf16 x, bf16 g, the float32 errors)."""
+    from epic_tpu_torch.ops.gdn_kernel import gdn_backward, gdn_backward_rows
+
+    xb, gb = x.bfloat16(), g.bfloat16()
+    errs = _check_gdn_bwd(f"{label} (bf16 values)", xb.float(), gamma, beta,
+                          gb.float(), inverse, autograd)
+    pairs = ((gdn_backward_rows(xb, gamma, beta, gb, inverse),
+              gdn_backward_rows(xb.float(), gamma, beta, gb.float(),
+                                inverse)),
+             (gdn_backward(xb, gamma, beta, gb, inverse),
+              gdn_backward(xb.float(), gamma, beta, gb.float(), inverse)))
+    for got, want in pairs:
+        if got[0].dtype is not torch.bfloat16 or not (
+                torch.equal(got[0], want[0].bfloat16())
+                and all(torch.equal(a, b) for a, b in zip(got[1:],
+                                                          want[1:]))):
+            raise AssertionError(f"{label}: the bf16 backward is not the "
+                                 "float32 one's (dx rounded)")
+    return xb, gb, errs
+
+
+def _bwd_kernel_names(x, gamma, beta, g, inverse: bool):
+    """The CUDA kernels that torch.profiler records in one backward through
+    the autograd function (it may drop a record, never add one), and the
+    launches of the backward kernel and of its reduction it counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from epic_tpu_torch.ops.gdn_kernel import (gdn_backward,
+                                               gdn_backward_reduce,
+                                               gdn_differentiable)
+
+    kind = "igdn" if inverse else "gdn"
+    xr, gr, br = (t.clone().requires_grad_() for t in (x, gamma, beta))
+    y = gdn_differentiable(xr, gr, br, inverse)
+    torch.cuda.synchronize()
+    before = gdn_backward.launches[kind] + gdn_backward_reduce.launches[kind]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(y, (xr, gr, br), g)
+        torch.cuda.synchronize()
+    launched = (gdn_backward.launches[kind]
+                + gdn_backward_reduce.launches[kind] - before)
+    return ([e.name for e in prof.events() if e.device_type.name == "CUDA"],
+            launched)
+
+
 def phase_backward_kernel(smi: str):
-    """The GDN / IGDN backward kernel against its plain version and against
-    autograd through gdn_plain: at a flagship first_train step's row counts
-    (timed: kernel, plain, bound), at ragged R, at every C it takes (R =
-    333), and on a side stream bitwise the main stream's. Returns the rows
-    checked, per kind."""
-    from epic_tpu_torch.ops.gdn_kernel import (MAX_CHANNELS, gdn_backward,
-                                               gdn_backward_rows,
-                                               gdn_backward_rows_plain)
+    """The GDN / IGDN backward (the kernel and its reduction) against its
+    plain version and against autograd through gdn_plain, float32 and bf16
+    (bf16 bitwise the float32 path's, dx rounded): at a flagship
+    first_train step's row counts (timed in both types: the whole
+    ``gdn_backward``, the kernel with u written, the reduction, their plain
+    versions, the bounds, the wgmma floor), at ragged R, at every C it takes
+    (R = 333), repeated launches and a side stream bitwise; the backward
+    through autograd launches the two kernels once each and no cast, in
+    both types. Returns the rows checked, per kind."""
+    from epic_tpu_torch.ops.gdn_kernel import (
+        MAX_CHANNELS, _backward_launch, backward_clusters, gdn_backward,
+        gdn_backward_plain, gdn_backward_reduce, gdn_backward_reduce_plain,
+        gdn_backward_rows, gdn_backward_rows_plain)
     from epic_tpu_torch.tools.gdn_phases import sm_clock_mhz_under_load
 
     dev = torch.device("cuda")
@@ -680,28 +760,72 @@ def phase_backward_kernel(smi: str):
             g = torch.randn((rows, c), generator=gen, device=dev)
             errs = _check_gdn_bwd(f"{name} backward R={rows}", x, gamma,
                                   beta, g, inverse)
-            ms = time_cuda(lambda: gdn_backward_rows(x, gamma, beta, g,
+            xb, gb, errs_b = _check_gdn_bwd_bf16(
+                f"{name} backward R={rows}", x, gamma, beta, g, inverse)
+            ms = time_cuda(lambda: gdn_backward(x, gamma, beta, g, inverse))
+            bf16_ms = time_cuda(lambda: gdn_backward(xb, gamma, beta, gb,
                                                      inverse))
-            total_ms = time_cuda(lambda: gdn_backward(x, gamma, beta, g,
-                                                      inverse))
-            plain_ms = time_cuda(lambda: gdn_backward_rows_plain(
+            rows_ms = time_cuda(lambda: gdn_backward_rows(x, gamma, beta, g,
+                                                          inverse))
+            plain_ms = time_cuda(lambda: gdn_backward_plain(
                 x, gamma, beta, g, inverse))
+            rows_plain_ms = time_cuda(lambda: gdn_backward_rows_plain(
+                x, gamma, beta, g, inverse))
+            # the reduction alone, on this launch's partials
+            _, _, part, parts = _backward_launch(x, gamma, beta, g, inverse,
+                                                 False)
+            red = gdn_backward_reduce(part, parts, c, inverse)
+            red_p = gdn_backward_reduce_plain(part, parts, c, inverse)
+            red_err = max(float((a - b).abs().max())
+                          for a, b in zip(red, red_p))
+            red_rel = max(_rel(a, b) for a, b in zip(red, red_p))
+            if not red_rel <= 1e-6:
+                raise AssertionError(f"{name} reduction R={rows}: relative "
+                                     f"error {red_rel:.3e} > 1e-6")
+            red_ms = time_cuda(lambda: gdn_backward_reduce(part, parts, c,
+                                                           inverse))
+            red_plain_ms = time_cuda(lambda: gdn_backward_reduce_plain(
+                part, parts, c, inverse))
+            pv = part[:parts * (MAX_CHANNELS + 1) * MAX_CHANNELS].view(
+                parts, MAX_CHANNELS + 1, MAX_CHANNELS)
+            red_lib_ms = time_cuda(lambda: torch.sum(pv, dim=0))
             bound, by = gdn_bwd_bounds_ms(rows, c, peak)
+            bf16_bound, bf16_by = gdn_bwd_bounds_ms(rows, c, peak, elem=2)
+            old_bound = gdn_bwd_two_product_bound_ms(rows, c, peak)
             if rows == GDN_BWD_ROWS[0]:  # about a second of launches
-                mhz = sm_clock_mhz_under_load(lambda: gdn_backward_rows(
+                mhz = sm_clock_mhz_under_load(lambda: gdn_backward(
                     x, gamma, beta, g, inverse), int(1000 / ms) + 1)
-            floor = gdn_bwd_mma_floor_ms(rows, c, mhz)
-            per_shape.append(dict(rows=rows, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=bound, bound_by=by,
-                                  backward_total_ms=total_ms,
-                                  mma_floor_ms=floor, **errs))
+                clusters = backward_clusters(torch.float32, inverse)
+            floor = gdn_bwd_mma_floor_ms(rows, clusters, mhz)
+            per_shape.append(dict(
+                rows=rows, ms=ms, bf16_ms=bf16_ms, rows_ms=rows_ms,
+                plain_ms=plain_ms, rows_plain_ms=rows_plain_ms,
+                bound_ms=bound, bound_by=by, bf16_bound_ms=bf16_bound,
+                bf16_bound_by=bf16_by, two_product_bound_ms=old_bound,
+                mma_floor_ms=floor, clusters=clusters, sm_mhz=mhz,
+                reduce_parts=parts, reduce_ms=red_ms,
+                reduce_plain_ms=red_plain_ms, reduce_library_ms=red_lib_ms,
+                reduce_bound_ms=gdn_bwd_reduce_bound_ms(parts, c, peak),
+                reduce_max_abs_err=red_err,
+                bf16_errs=errs_b, **errs))
             log(f"[3b backward] {name} R={rows} C={c}: rel err dx "
                 f"{errs['dx']:.2e} u {errs['u']:.2e}, against autograd dx "
                 f"{errs['dx_autograd']:.2e} dgamma {errs['dgamma']:.2e} "
-                f"dbeta {errs['dbeta']:.2e}; kernel {ms:.4f} ms, with the "
-                f"dgamma / dbeta reductions {total_ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), mma.sync "
-                f"floor {floor:.4f} ms at {mhz:.0f} MHz [{smi}]")
+                f"dbeta {errs['dbeta']:.2e} (bf16 values: dx "
+                f"{errs_b['dx']:.2e} dgamma {errs_b['dgamma']:.2e}; bf16 "
+                f"bitwise the float32 path's); whole gdn_backward float32 "
+                f"{ms:.4f} ms, bf16 {bf16_ms:.4f} ms (bound {bound:.4f} / "
+                f"{bf16_bound:.4f}, {by}; the two-product bound "
+                f"{old_bound:.4f}), the kernel with u written "
+                f"{rows_ms:.4f} ms, plain {plain_ms:.4f} ms (dx and u alone "
+                f"{rows_plain_ms:.4f}), wgmma floor {floor:.4f} ms at "
+                f"{mhz:.0f} MHz on {clusters} clusters; reduction of "
+                f"{parts} partials {red_ms:.4f} ms (plain {red_plain_ms:.4f}, "
+                f"torch.sum {red_lib_ms:.4f}, bound "
+                f"{gdn_bwd_reduce_bound_ms(parts, c, peak):.4f}, rel err "
+                f"{red_rel:.1e}) [{smi}]")
+            del x, g, xb, gb, part
+        torch.cuda.empty_cache()
         worst = 0.0
         for rows in GDN_RAGGED_ROWS:
             x, gm, b = _gdn_data(rows, c, rng, dev)
@@ -709,28 +833,68 @@ def phase_backward_kernel(smi: str):
                 np.float32), device=dev)
             e = _check_gdn_bwd(f"{name} backward R={rows}", x, gm, b, g,
                                inverse)
-            worst = max(worst, e["dx"], e["u"], e["dx_autograd"])
+            eb = _check_gdn_bwd_bf16(f"{name} backward R={rows}", x, gm, b,
+                                     g, inverse)[2]
+            worst = max(worst, e["dx"], e["u"], e["dx_autograd"], eb["dx"],
+                        eb["u"], eb["dx_autograd"])
         for width in range(1, MAX_CHANNELS + 1):
             x, gm, b = _gdn_data(333, width, rng, dev)
             g = torch.as_tensor(rng.normal(0, 1, (333, width)).astype(
                 np.float32), device=dev)
             e = _check_gdn_bwd(f"{name} backward C={width}", x, gm, b, g,
                                inverse, autograd=width % 16 == 0)
-            worst = max(worst, e["dx"], e["u"])
+            eb = _check_gdn_bwd_bf16(f"{name} backward C={width}", x, gm, b,
+                                     g, inverse, autograd=width % 16 == 8)[2]
+            worst = max(worst, e["dx"], e["u"], eb["dx"], eb["u"])
+        # the u exchange and the box ring: many launches, every one bitwise
+        # the first, then a side stream
+        x, gm, b = _gdn_data(24_576, c, rng, dev)
+        g = torch.randn(x.shape, generator=gen, device=dev)
+        for xt, gt in ((x, g), (x.bfloat16(), g.bfloat16())):
+            want = gdn_backward(xt, gm, b, gt, inverse)
+            for _ in range(REPEAT_LAUNCHES // 30):
+                outs = [gdn_backward(xt, gm, b, gt, inverse)
+                        for _ in range(10)]
+                if not all(torch.equal(p, q) for o in outs
+                           for p, q in zip(o, want)):
+                    raise AssertionError(f"{name} backward {xt.dtype}: "
+                                         "launches of the same input differ")
         x, gm, b = _gdn_data(GDN_BWD_ROWS[0], c, rng, dev)
         g = torch.randn(x.shape, generator=gen, device=dev)
-        want = gdn_backward_rows(x, gm, b, g, inverse)
-        torch.cuda.synchronize()
-        s = torch.cuda.Stream()
-        with torch.cuda.stream(s):
-            got = gdn_backward_rows(x, gm, b, g, inverse)
-        s.synchronize()
-        if not all(torch.equal(a, w) for a, w in zip(got, want)):
-            raise AssertionError(f"{name} backward: a side-stream launch "
-                                 "differs from the main stream's bits")
+        for xt, gt in ((x, g), (x.bfloat16(), g.bfloat16())):
+            want = (gdn_backward_rows(xt, gm, b, gt, inverse)
+                    + gdn_backward(xt, gm, b, gt, inverse))
+            torch.cuda.synchronize()
+            s = torch.cuda.Stream()
+            with torch.cuda.stream(s):
+                got = (gdn_backward_rows(xt, gm, b, gt, inverse)
+                       + gdn_backward(xt, gm, b, gt, inverse))
+            s.synchronize()
+            if not all(torch.equal(p, q) for p, q in zip(got, want)):
+                raise AssertionError(f"{name} backward {xt.dtype}: a "
+                                     "side-stream launch differs from the "
+                                     "main stream's bits")
+        # no cast around the bf16 backward: as float32's, our two kernels
+        # launched once each and nothing else recorded
+        x, gm, b = _gdn_data(4_096, c, rng, dev)
+        g = torch.randn(x.shape, generator=gen, device=dev)
+        seen = [_bwd_kernel_names(xt, gm, b, gt, inverse)
+                for xt, gt in ((x, g), (x.bfloat16(), g.bfloat16()))]
+        for names, launched in seen:
+            if launched != 2 or not names or not all("gdn_bwd" in n
+                                                      for n in names):
+                raise AssertionError(f"{name} backward: {launched} counted "
+                                     f"launches, the profiler recorded "
+                                     f"{names}")
         log(f"[3b backward] {name} ragged R {GDN_RAGGED_ROWS} and C = 1.."
-            f"{MAX_CHANNELS} at R=333: max rel err {worst:.2e}; R="
-            f"{GDN_BWD_ROWS[0]} on a side stream bitwise the main stream's")
+            f"{MAX_CHANNELS} at R=333, float32 and bf16: max rel err "
+            f"{worst:.2e}, bf16 bitwise the float32 path's; "
+            f"{REPEAT_LAUNCHES // 3} launches at R=24576 bitwise alike and "
+            f"R={GDN_BWD_ROWS[0]} on a side stream bitwise the main "
+            f"stream's, both types; the bf16 backward through autograd, as "
+            f"float32's, launched the kernel and its reduction once each and "
+            f"the profiler recorded no other kernel ("
+            f"{len(seen[1][0])} recorded)")
         out[name] = per_shape
     torch.cuda.empty_cache()
     return out
@@ -740,15 +904,22 @@ def _counted(fn, backward: bool = False):
     """Run fn with the kernel launch counts (forward and backward) set to 0
     just before; returns (fn's result, the forward counts just after), and
     with ``backward`` also the backward counts. Without it, a backward
-    launch raises: no inference path may run one."""
-    from epic_tpu_torch.ops.gdn_kernel import gdn, gdn_backward
+    launch raises: no inference path may run one. The backward's reduction
+    kernel must launch once per backward kernel launch."""
+    from epic_tpu_torch.ops.gdn_kernel import (gdn, gdn_backward,
+                                               gdn_backward_reduce)
 
     torch.cuda.synchronize()
     gdn.launches.update(gdn=0, igdn=0)
     gdn_backward.launches.update(gdn=0, igdn=0)
+    gdn_backward_reduce.launches.update(gdn=0, igdn=0)
     out = fn()
     torch.cuda.synchronize()
     bwd = dict(gdn_backward.launches)
+    red = dict(gdn_backward_reduce.launches)
+    if red != bwd:
+        raise AssertionError(f"the backward's reduction launched {red} "
+                             f"times, the backward kernel {bwd}")
     if backward:
         return out, dict(gdn.launches), bwd
     if any(bwd.values()):
@@ -2153,7 +2324,8 @@ def parallel_rank(rank: int, world: int, port: int, out: str) -> None:
     (``training=False``), PAR_STEPS steps; writes the losses, the step
     walls, the kernels' launches over the steps, the parameters' SHA-256
     and the peak memory to ``out``."""
-    from epic_tpu_torch.ops.gdn_kernel import gdn, gdn_backward
+    from epic_tpu_torch.ops.gdn_kernel import (gdn, gdn_backward,
+                                               gdn_backward_reduce)
     from epic_tpu_torch.parallel import (init_multihost, make_mesh,
                                          make_parallel_train_step, replicate,
                                          shard_batch)
@@ -2169,7 +2341,12 @@ def parallel_rank(rank: int, world: int, port: int, out: str) -> None:
     x = shard_batch(_par_batch(), mesh)
     gdn.launches.update(ZERO)
     gdn_backward.launches.update(ZERO)
+    gdn_backward_reduce.launches.update(ZERO)
     losses, walls = _timed_steps(step, state, x)
+    if dict(gdn_backward_reduce.launches) != dict(gdn_backward.launches):
+        raise AssertionError(f"rank {rank}: the backward's reduction "
+                             f"launched {dict(gdn_backward_reduce.launches)}"
+                             f", the kernel {dict(gdn_backward.launches)}")
     res = {"rank": rank, "world": world, "losses": losses, "walls": walls,
            "launches": dict(gdn.launches),
            "backward": dict(gdn_backward.launches),
@@ -2843,13 +3020,32 @@ def main(argv=None) -> int:
             "replaces": "epic_tpu/ops/pallas_gdn.py:80",
             "launches": sum(n[name] for n in backward.values()),
             "max_abs_err": max(r["max_abs_err"] for r in bwd_shapes[name]),
+            # the whole gdn_backward (the kernel and its reduction) and its
+            # plain version
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": None, "rows": top["rows"],
             "launches_by_path": {k: n[name] for k, n in backward.items()},
             "max_rel_err_dx": max(r["dx"] for r in bwd_shapes[name]),
-            "backward_total_ms": top["backward_total_ms"],
+            "bf16_ms": top["bf16_ms"], "bf16_bound_ms": top["bf16_bound_ms"],
+            "rows_ms": top["rows_ms"],
+            "two_product_bound_ms": top["two_product_bound_ms"],
             "mma_floor_ms": top["mma_floor_ms"]})
+        # the second kernel of a backward call: the partials' fixed-order
+        # sum (launched once per backward kernel launch, asserted on every
+        # counted path)
+        kernels.append({
+            "name": f"{name}_backward_reduce", "route": "cuda",
+            "source": "epic_tpu_torch/csrc/gdn_bwd.cu",
+            "replaces": "epic_tpu/ops/pallas_gdn.py:80",
+            "launches": sum(n[name] for n in backward.values()),
+            "max_abs_err": max(r["reduce_max_abs_err"]
+                               for r in bwd_shapes[name]),
+            "ms": top["reduce_ms"], "plain_ms": top["reduce_plain_ms"],
+            "bound_ms": top["reduce_bound_ms"], "bound_by": "bytes",
+            # torch.sum over the partials (unscaled)
+            "library_ms": top["reduce_library_ms"],
+            "parts": top["reduce_parts"]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,571 +1,1062 @@
-// gdn_bwd.cu — backward of fused GDN / inverse GDN for Hopper (sm_90a) on
-// tensor cores, with a plain C interface bound from Python with ctypes
-// (epic_tpu_torch/ops/gdn_kernel.py: gdn_backward).
+// gdn_bwd.cu — backward of fused GDN / inverse GDN for Hopper (sm_90a):
+// wgmma 3xTF32 on three products, x brought in by TMA and shared by a
+// cluster of four blocks, dgamma and dbeta folded in, float32 or bf16 in
+// and out. A plain C interface bound from Python with ctypes
+// (epic_tpu_torch/ops/gdn_kernel.py: gdn_backward, gdn_backward_rows).
 //
 // Replaces the backward half of the JAX package's GDN kernel: the
 // closed-form custom_vjp rule `_bwd` of gdn_pallas in
-// epic_tpu/ops/pallas_gdn.py (XLA there, not Pallas). Over x and the
-// incoming gradient g flattened to [R, C] (float32):
+// epic_tpu/ops/pallas_gdn.py:80 (XLA there, not Pallas). Over x and the
+// incoming gradient g flattened to [R, C], 1 <= C <= 192:
 //     n[r, i]  = beta[i] + sum_j x[r, j]^2 * gamma[j, i]
 //   GDN  (y = x n^-1/2):  u = g x n^-3/2,  dx = g n^-1/2 - x (u @ gamma^T)
 //   IGDN (y = x n^+1/2):  u = g x n^-1/2,  dx = g n^+1/2 + x (u @ gamma^T)
-// The kernel writes dx and u; the caller forms dgamma = -/+ 1/2 (x^2)^T @ u
-// and dbeta = -/+ 1/2 sum_r u with two library reductions, as the JAX
-// package leaves them to XLA.
+//   dgamma = -/+ 1/2 (x^2)^T @ u,  dbeta = -/+ 1/2 sum_r u
+// x, g and dx are float32 or bf16 (one template each), gamma, beta, u,
+// dgamma and dbeta float32. bf16 is widened exactly, everything is computed
+// in float32, and dx is rounded once (to nearest even): the bf16 variant
+// gives dx bitwise the float32 variant's rounded, and dgamma / dbeta
+// bitwise the float32 variant's, so no cast wraps a bf16 call.
 //
-// What bounds it on the H100. Two products of 2RC^2 operations (n, then
-// u @ gamma^T) against 16RC + 4C^2 + 4C bytes (x, g read; dx, u written):
-// at C = 192, 48 operations per byte, bound by bytes at the published TF32
-// peak. But mma.sync TF32 m16n8k8 runs at one per 8 clocks per SM
-// sub-partition when two warps issue (tools/gdn_phases.py, the mma_only
-// copies), half the rate that peak assumes, and one warp alone issues one
-// per ~14 clocks. A 32-row tile's 6,912 MMAs (2 products x 3 passes x 2
-// m16 x 24 n8 x 24 k8) take at least 13,824 clocks per SM: the floor of an
-// mma.sync design. The kernel is laid out so that the rest costs few
-// instructions and runs while the tensor cores are busy:
-//  - 3xTF32 (a_lo*b_hi, a_hi*b_lo and a_hi*b_hi, each pass into its own
-//    float32 accumulators, summed as (hi*hi + lo*hi) + hi*lo at the end)
-//    for float32 accuracy. The MMA reads only the top 19 bits of a
-//    register, so hi is the value itself (truncated by the MMA) and
-//    lo = v - (v with its 13 low bits cleared), handed over as it is: two
-//    operations per operand instead of a rounded split's five. The second
-//    product's A operand u is signed, so its sum may cancel; each term keeps
-//    float32 accuracy, the sum an error relative to sum |u_i gamma_ji|.
-//  - Both products run 24 k-steps, fully unrolled, at any C: gamma is
-//    zero-padded to [192][192] and both A operands to 192 columns.
-//  - Within each 8-wide k-step, MMA slot k = tig holds column 2 tig and slot
-//    tig + 4 column 2 tig + 1 (the contraction does not care which column
-//    sits in which slot, as long as A and B agree). Then the A fragment of
-//    product 2 at k-step f is exactly what lane (gid, tig) of the warp that
-//    owns n-fragment f holds of u after product 1: epilogue 1 stores it in
-//    that fragment order, and product 2 reads its A operand with one
-//    128-bit load per k-step. Product 1's A (x^2) is two 64-bit loads.
-//  - gamma sits in shared memory once per block as [192][192], each row's
-//    columns XOR-swizzled in bits 3-4 by the row (swz below), so that both
-//    products read it without bank conflicts: product 1 as B[k][n] =
-//    gamma[k][n] (32-bit loads), product 2 as B[k][n] = gamma[n][k] (64-bit
-//    loads of a column pair). Every fragment address is a per-thread base
-//    plus a constant, or, in product 2, one XOR per k-step.
-//  - Two groups of 4 warps (one warp of each on every sub-partition); each
-//    group owns 16 rows of every tile and walks the block's tiles on its
-//    own, with its own barriers. The groups take turns on the tensor cores
-//    (two named barriers): while one issues a product's MMAs, the other
-//    runs its epilogue, its tile wait and its loads, which so hide under
-//    the MMAs instead of leaving the tensor cores idle.
-//  - x tiles (32 rows, row stride 200 floats: conflict-free 64-bit loads)
-//    are double-buffered with cp.async, the next in flight from the start of
-//    this tile. g is read once, straight into the registers of the thread
-//    that uses it, issued before product 1 and consumed in epilogue 1.
-//  - Per tile and group: product 1 gives n in the registers; epilogue 1
-//    forms u (to shared memory in fragment order, and to global memory) and
-//    keeps g n^-/+1/2 in registers; product 2 on u; epilogue 2 reads x again
-//    from its tile and writes dx.
-//  - A persistent grid of min(tiles, SMs) blocks; warp f0 of a group owns
-//    the n-fragments f0 + 4 j, j < 6. The tile copies' per-thread offsets
-//    are computed once per launch.
-//  - Determinism: fixed summation order, no atomics, nothing that depends
-//    on R or on a row's tile.
+// What bounds it on the H100. Three products of 2RC^2 (n; u @ gamma^T;
+// (x^2)^T @ u), each as three TF32 products for float32 accuracy: 9 x 2RC^2
+// operations at the TF32 peak of 495 TFLOP/s, against x and g read and dx
+// written (12RC bytes in float32, 6RC in bf16) at 3.35 TB/s. At C = 192 it
+// is bound by operations in both types (0.3514 ms at R = 262,144, against
+// 0.1803 ms of float32 bytes).
 //
-// Shared memory at any C: gamma 192 * 192 * 4 = 147,456 B, two x tiles of
-// 32 * 200 * 4 = 25,600 B and u in fragment order (24,576 B): 223,232 B of
-// the 232,448 a block may use.
+// Design, and the choice made at each hard point:
+//  - gamma in two orientations. TF32 wgmma takes both operands K-major:
+//    product 1 (x^2 @ gamma) wants B[k][n] = gamma[k][n], product 2
+//    (u @ gamma^T) B[k][n] = gamma[n][k]. Both orientations' TF32 hi and lo
+//    halves are 589,824 B. A cluster of four blocks walks the same 64-row
+//    tiles; block rank q owns the output columns 48 q .. 48 q + 47 of both
+//    products and holds its 48 columns of both orientations (147,456 B).
+//    Each x tile is loaded once from device memory and TMA-multicast to the
+//    four blocks (each block issues its share of the boxes).
+//  - Product 1 is the forward's: A = x^2 of the tile's rows, squared and
+//    split in registers from the x boxes, B = gamma's first orientation
+//    (the same K-slot order: a thread's four columns of a 16-column group
+//    feed two k-steps). Its epilogue forms u (and g n^-/+1/2, kept in
+//    registers for dx) for the block's 48 columns.
+//  - u between the blocks. Product 2 contracts over all 192 columns of u,
+//    and each block formed 48. Each block writes its u quarter, transposed
+//    ([48 columns][64 rows], hi and lo halves), into its own shared memory;
+//    product 2 reads its A operand straight from the four blocks' quarters
+//    (ld.shared::cluster, 8 bytes: a thread's two rows sit at adjacent K
+//    positions, kpos_row), three k-step groups ahead. The signals that a
+//    quarter is written and that the peers have read it need a release at
+//    the cluster's scope, which compiles to MEMBAR.GPU (a wait for every
+//    memory operation of the thread): a warp of the producer warpgroup
+//    relays them from local mbarriers, four lanes at once, so that the row
+//    warpgroup never executes one.
+//  - dgamma contracts over rows: A and B both arrive row-major, that is M-
+//    and N-major for it, and TMA does not transpose. So its A (x^2, M = the
+//    192 rows of gamma in three m64 tiles) is gathered into registers from
+//    the swizzled x boxes, and its B is the u quarter the epilogue already
+//    wrote transposed: dgamma[:, 48 q ..] of the tile adds into 72
+//    accumulator registers a thread, which every 8 tiles are added to the
+//    cluster's partial in device memory and start afresh (the tensor cores
+//    round their float32 sums toward zero: kept over a whole launch, the
+//    error grew with R).
+//  - dbeta: the dgamma warpgroup sums each tile's u quarter per column from
+//    shared memory, two threads a column, in K order.
+//  - Determinism. dx and u of a row depend only on the row (fixed k order,
+//    one accumulator per product). dgamma and dbeta: no atomics; each
+//    cluster writes its partial sums ([193][192]: dgamma's rows, then
+//    dbeta) to a scratch buffer that the caller allocates, and a second,
+//    small kernel sums the partials in cluster order and scales them. The
+//    rows a cluster walks depend only on R and the cluster count, and the K
+//    order of the tile's rows is the same in both types, so the two types
+//    agree bitwise.
+//  - Accuracy: 3xTF32 (a_lo*b_hi, a_hi*b_lo, a_hi*b_hi) on every product.
+//    gamma's halves are rounded once per block (gdn_common.cuh's split);
+//    A's are the value (the MMA reads it truncated) and the exact rest, as
+//    is u's transposed copy (hi the value, lo the rest), so every term
+//    keeps float32 accuracy; u is signed, so products 2 and 3 may cancel,
+//    with an error relative to sum |u_j gamma_ij| and sum |x^2 u|.
+//  - Edges: gamma zero-padded to 192 x 192 and beta to 1, so every C runs
+//    the same unrolled k-steps; TMA zero-fills rows past R and columns past
+//    C; g is read with bounds checks and u is 0 outside; dx and u are
+//    stored with bounds checks. A row pitch TMA cannot take (C * size not a
+//    multiple of 16 B), C narrower than a box, or x not 16-byte aligned
+//    takes the forward's load path: the producer warp's lanes copy each box
+//    into the same swizzled layout.
+//  - Warp roles: the row warpgroup (warps 0-3) runs products 1 and 2 and
+//    both epilogues of each tile; the dgamma warpgroup (warps 4-7) runs
+//    product 3 beside it, with its 72 accumulators in registers of its own
+//    (in one warpgroup beside the rest they took 255 registers, spilled,
+//    and ptxas then waited after every wgmma); the producer warpgroup
+//    (warps 8-11) loads x into a ring of 7 box slots (one lane of warp 8
+//    issues the TMA loads; a full and an empty mbarrier per slot) and
+//    relays the u signals (warp 9). A tile's boxes go back to the ring as
+//    soon as both consumer warpgroups have read them (the dgamma
+//    warpgroup gathers its x values into registers as the boxes land), so
+//    the next tile's boxes load under this one's epilogues and product 2
+//    (a release box by box, tried, was no faster). g is kept as stored
+//    until epilogue 1,
+//    so that its loads' latency runs under product 1. A persistent grid of
+//    as many clusters as fit on the card (at most one per tile). ptxas
+//    gives each thread 168 registers (a block of three warpgroups); the
+//    producer warpgroup hands its registers to the consumers at run time
+//    (setmaxnreg), but ptxas does not allocate past 168 in their code, so
+//    each consumer warpgroup keeps two wgmma groups in flight.
 //
-// The helpers (mma.sync, cp.async, beta columns, the launch's set-up) are
-// gdn.cu's, from gdn_common.cuh.
+// Shared memory (either type): a ring of 7 boxes of 64 rows x 128 bytes
+// (57,344 B), gamma's two orientations' hi and lo halves of 48 columns
+// (147,456 B), u's transposed quarter's hi and lo (24,576 B), 20 mbarriers,
+// beta's 48 columns, dbeta's half-sums, a scratch word, 1,024 B of
+// alignment slack: 231,152 B of the 232,448 a block may use. 384 threads.
+//
+// Phase clocks, compiled in only with -DGDN_PHASES (tools/gdn_phases.py):
+// block 0's first thread of each consumer warpgroup and the producer lane
+// sum clock64() deltas. Timing-only copies of that tool: -DGDN_MMA_ONLY
+// feeds the MMAs operands made from the step index (no x, box or u loads,
+// no splits), -DGDN_NO_MMA issues no MMA; their outputs are not the
+// backward's.
 
 #include "gdn_common.cuh"
 
-// Phase clocks, compiled in only with -DGDN_PHASES (tools/gdn_phases.py):
-// block 0's thread 0 sums clock64() deltas per phase into g_phase.
-#ifdef GDN_PHASES
-__device__ long long g_phase[8];
-#define PHASE_INIT long long ph_t0 = clock64(), ph_t = ph_t0, ph[7] = {};
-#define PHASE(i) do { const long long n_ = clock64(); ph[i] += n_ - ph_t; \
-                      ph_t = n_; } while (0)
-#define PHASE_SAVE if (blockIdx.x == 0 && threadIdx.x == 0) {            \
-        for (int i_ = 0; i_ < 7; ++i_) g_phase[i_] = ph[i_];              \
-        g_phase[7] = clock64() - ph_t0; }
-#else
-#define PHASE_INIT
-#define PHASE(i)
-#define PHASE_SAVE
-#endif
+#include <mutex>
 
 namespace {
 
-constexpr int kStride = kMaxChannels + 8;          // x tile row stride
-constexpr int kTileFloats = kTileRows * kStride;
-constexpr int kGammaFloats = kMaxChannels * kMaxChannels;
-constexpr int kKSteps = kMaxChannels / 8;          // 24
-// u in fragment order: [2 row halves][24 k-steps][32 lanes][4]
-constexpr int kUFloats = 2 * kKSteps * 32 * 4;
-constexpr int kSmemBytes = (kGammaFloats + 2 * kTileFloats + kUFloats) *
-                           static_cast<int>(sizeof(float));
-// Two groups of 4 warps, each on its own 16 rows of every tile
-constexpr int kGroupThreads = kThreads / 2;
-constexpr int kGroupRows = kTileRows / 2;
-// 16-byte chunks of a group's 16 rows per thread, at most (C = 192)
-constexpr int kChunks = kGroupRows * kMaxChannels / 4 / kGroupThreads;  // 6
-// named barriers: 1 + group within a group; kTurn + group: that group's
-// turn on the tensor cores
-constexpr int kTurn = 3;
-constexpr uint32_t kTf32Mask = 0xffffe000u;
+constexpr int kRows = 64;                    // rows of a tile (wgmma's M)
+constexpr int kK = kMaxChannels;             // K of products 1 and 2
+constexpr int kCluster = 4;                  // blocks sharing a tile
+constexpr int kN = kMaxChannels / kCluster;  // output columns per block: 48
+constexpr int kNGroups = kN / 8;             // their n8-groups: 6
+// the row and dgamma warpgroups, and a producer warpgroup (one warp works)
+// that hands its registers to them
+constexpr int kBwdThreads = 3 * 128;
+constexpr int kGammaWords = kN * kK;         // one TF32 half, one orientation
+constexpr int kUWords = kN * kRows;          // one half of u's quarter
+constexpr uint32_t kUSbo = (kRows / 4) * 128;  // its N-adjacent core matrices
+constexpr int kBoxBytes = kRows * kBoxRow;   // 8,192
+constexpr int kSlots = 7;                    // boxes in the ring
+constexpr int kAlign = 1024;                 // the 128-byte swizzle's atom
+constexpr int kPartRows = kMaxChannels + 1;  // a partial: dgamma, then dbeta
+// tiles whose dgamma sums stay in the accumulators before they are added to
+// the cluster's partial (the tensor cores' float32 sums round toward zero:
+// over a launch's hundred tiles and more that error grew to 6e-5 of the
+// largest dgamma at R = 262,144)
+constexpr int kFlush = 8;
+// k-step groups (two k-steps, six wgmmas each) a warpgroup keeps in flight
+constexpr int kDepth = 2;
+// k-step groups of u that product 2 reads ahead of its MMAs
+constexpr int kAhead = 3;
+constexpr int kSmem = kAlign + kSlots * kBoxBytes + 16 * kGammaWords +
+                      8 * kUWords + 16 * kSlots + 48 + 4 * kN +
+                      4 * 2 * kN + 16;
+static_assert(kSmem <= 232448, "shared memory");
 
-// gamma[row][col] lives at row * 192 + (col ^ swz(row)): row bit 0 flips
-// column bit 4, row bits 1 and 2 flip column bits 3 and 4. A 4-column
-// chunk stays whole, and both products' fragment loads hit distinct banks.
-__host__ __device__ constexpr int swz(int row) {
-    return ((row & 1) << 4) ^ ((row & 6) << 2);
+// The tile row of MMA row g (0..7) of a warp's 8-row group, one order for
+// both types (so that a row's K position in dgamma's product, and with it
+// the order of dgamma's and dbeta's sums, is the same in both): 0, 6, 2, 4,
+// 1, 7, 3, 5. A float32 16-byte load's pass (rows g and g + 1) reads two
+// rows whose 128-byte swizzles differ in bit 2, a bf16 8-byte load's (rows
+// g .. g + 3) four rows whose swizzles differ in bits 1-2: distinct banks.
+__device__ __forceinline__ int tile_row(int g) {
+    return (0x53714260u >> (4 * g)) & 7;
 }
 
-__device__ __forceinline__ uint32_t lo_of(float v) {
-    return __float_as_uint(v - __uint_as_float(__float_as_uint(v) &
-                                               kTf32Mask));
+// Word offset of gamma[n0 + n][k] in a TF32 half laid out as B[k][n] for
+// u @ gamma^T: core matrix (n / 8, k / 4), row n % 8, element k % 4
+// (k-step k / 8 takes MMA slot k % 8, the natural order).
+__device__ __forceinline__ int gamma_t_word(int n, int k) {
+    return (n >> 3) * (kSbo / 4) + (k >> 2) * (kLbo / 4) + 4 * (n & 7) +
+           (k & 3);
 }
 
-// Copy gamma ([c][c]) into gs, swizzled, zero-filled to [192][192]; all
-// copies in flight at once.
-__device__ __forceinline__ void load_gamma_swizzled(float* gs,
-                                                    const float* gamma,
-                                                    int c) {
-    if ((c & 3) == 0 && (reinterpret_cast<uintptr_t>(gamma) & 15) == 0) {
-        constexpr int per_row = kMaxChannels / 4;
-        for (int i = threadIdx.x; i < kMaxChannels * per_row;
-             i += kThreads) {
-            const int r = i / per_row, q = 4 * (i - r * per_row);
-            const bool valid = r < c && q < c;
-            cp_async16(gs + r * kMaxChannels + (q ^ swz(r)),
-                       valid ? gamma + r * c + q : gamma, valid);
-        }
-    } else {
-        for (int i = threadIdx.x; i < kMaxChannels * kMaxChannels;
-             i += kThreads) {
-            const int r = i / kMaxChannels, q = i - r * kMaxChannels;
-            const bool valid = r < c && q < c;
-            cp_async4(gs + r * kMaxChannels + (q ^ swz(r)),
-                      valid ? gamma + r * c + q : gamma, valid);
-        }
-    }
+// Word offset of u at K position p (a tile row, see kpos_row) and column
+// n0 + n in u's transposed quarter, B[k = p][n] of dgamma's product: core
+// matrix (n / 8, p / 4), row n % 8, element p % 4.
+__device__ __forceinline__ int u_word(int n, int p) {
+    return (n >> 3) * (kUSbo / 4) + (p >> 2) * (kLbo / 4) + 4 * (n & 7) +
+           (p & 3);
 }
 
-// Copies of one group's 16 rows of a 32-row x tile into a buffer, by the
-// group's 128 threads: with `vec4` (c a multiple of 4, 16-byte aligned
-// source) each thread's 16-byte chunks at offsets computed once per launch;
-// otherwise 4-byte copies. Rows past `rows` are zero-filled, not read;
-// columns c .. 199 are never written.
-struct TileCopy {
-    int soff[kChunks], goff[kChunks];  // soff < 0: no chunk
-    int r_first;                       // the group's first row
+// The tile row at K position p of dgamma's product: K position 16 w + 2 g
+// + h holds the row of MMA row g + 8 h of warp w of the row warpgroup, so
+// that the two rows a thread holds are adjacent words of u's quarter (one
+// 8-byte store each, and one 8-byte load each for product 2).
+__device__ __forceinline__ int kpos_row(int p) {
+    return 16 * (p >> 4) + tile_row((p >> 1) & 7) + 8 * (p & 1);
+}
 
-    __device__ __forceinline__ TileCopy(int c, int group)
-        : r_first(kGroupRows * group) {
-        const int per_row = c >> 2;
-        const int gtid = threadIdx.x % kGroupThreads;
+#ifdef GDN_PHASES
+__device__ long long g_phase[11];
+#define PHASE_DECL long long ph[11] = {}, ph_mark = 0, ph_t0 = clock64();
+#define PHASE_MARK ph_mark = clock64();
+#define PHASE_ADD(i) ph[i] += clock64() - ph_mark;
+#else
+#define PHASE_DECL
+#define PHASE_MARK
+#define PHASE_ADD(i)
+#endif
+
+// The same barrier in block `cta` of the cluster, arrived on with a release
+// at the cluster's scope: it orders this block's writes of its u quarter
+// (made visible to this thread by a named barrier) before the peers' reads.
+__device__ __forceinline__ void mbar_arrive_release(uint32_t bar,
+                                                    uint32_t cta) {
+    asm volatile("{\n.reg .b32 ra;\n"
+                 "mapa.shared::cluster.u32 ra, %0, %1;\n"
+                 "mbarrier.arrive.release.cluster.shared::cluster.b64 _, "
+                 "[ra];\n}"
+                 :: "r"(bar), "r"(cta) : "memory");
+}
+
+// Wait for a phase of parity `parity`, acquiring at the cluster's scope.
+__device__ __forceinline__ void mbar_wait_acquire(uint32_t bar,
+                                                  uint32_t parity) {
+    uint32_t done;
+    do {
+        asm volatile("{\n.reg .pred p;\n"
+                     "mbarrier.try_wait.parity.acquire.cluster.shared::cta"
+                     ".b64 p, [%1], %2;\n"
+                     "selp.u32 %0, 1, 0, p;\n}"
+                     : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    } while (!done);
+}
+
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t cta) {
+    uint32_t r;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                 : "=r"(r) : "r"(addr), "r"(cta));
+    return r;
+}
+
+__device__ __forceinline__ float2 ld_cluster2(uint32_t addr) {
+    float2 v;
+    asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];"
+                 : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+    return v;
+}
+
+// A warpgroup's own barrier (id 1: the row warpgroup, 2: the dgamma one;
+// 0 is __syncthreads').
+__device__ __forceinline__ void named_sync(int id) {
+    asm volatile("bar.sync %0, 128;" :: "r"(id) : "memory");
+}
+
+// d[64 x 48] += a[64 x 8] (TF32, registers) * b[8 x 48] (TF32, descriptor)
+__device__ __forceinline__ void wgmma48(float (&d)[24], const uint32_t (&a)[4],
+                                        uint64_t desc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, %27}, "
+        "%28, p, 1, 1;\n}"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// The three TF32 products of one k-step into d: a_lo*b_hi, a_hi*b_lo,
+// a_hi*b_hi (the small terms first).
+__device__ __forceinline__ void mma3(float (&d)[24], const uint32_t (&ahi)[4],
+                                     const uint32_t (&alo)[4], uint64_t bhi,
+                                     uint64_t blo) {
+#ifdef GDN_NO_MMA
+    d[0] += __uint_as_float((ahi[0] ^ alo[1]) & 0x3fffffffu) +
+            static_cast<float>((bhi ^ blo) & 1);
+#else
+    wgmma48(d, alo, bhi);
+    wgmma48(d, ahi, blo);
+    wgmma48(d, ahi, bhi);
+#endif
+}
+
+// A operands of one k-step from four values (rows gid / gid + 8 x slots
+// tig / tig + 4, in MMA register order): [reg][hi, lo].
+__device__ __forceinline__ void split4(const float (&v)[4],
+                                       uint32_t (&ab)[4][2]) {
 #pragma unroll
-        for (int j = 0; j < kChunks; ++j) {
-            const int i = gtid + j * kGroupThreads;
-            const int r = r_first + (per_row ? i / per_row : 0);
-            const int q = per_row ? i % per_row : 0;
-            soff[j] = i < kGroupRows * per_row ? r * kStride + 4 * q : -1;
-            goff[j] = r * c + 4 * q;
-        }
-    }
-
-    __device__ __forceinline__ void issue(float* buf, const float* src,
-                                          long long rows, int c, long long t,
-                                          bool vec4) const {
-        const long long r0 = t * kTileRows;
-        const float* base = src + r0 * c;
-        if (vec4) {
-            const long long left = (rows - r0) * c;  // floats from r0 on
-#pragma unroll
-            for (int j = 0; j < kChunks; ++j) {
-                if (soff[j] < 0) continue;
-                const bool valid = goff[j] < left;
-                cp_async16(buf + soff[j], valid ? base + goff[j] : src,
-                           valid);
-            }
-        } else {
-            for (int i = threadIdx.x % kGroupThreads; i < kGroupRows * c;
-                 i += kGroupThreads) {
-                const int r = r_first + i / c, q = i % c;
-                const bool valid = r0 + r < rows;
-                cp_async4(buf + r * kStride + q,
-                          valid ? base + r * c + q : src, valid);
-            }
-        }
-    }
-};
-
-// Named barriers: bar.sync waits until `n` threads have arrived (its own
-// warp's included); bar.arrive counts its warp in without waiting.
-__device__ __forceinline__ void bar_sync(int id, int n) {
-    asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(n) : "memory");
+    for (int e = 0; e < 4; ++e) split_a(v[e], ab[e][0], ab[e][1]);
 }
 
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-    asm volatile("bar.arrive %0, %1;" :: "r"(id), "r"(n) : "memory");
-}
-
-// The 18 MMAs of one k-step on raw operands a (4 values) and b (6 x 2):
-// a_lo*b_hi, a_hi*b_lo and a_hi*b_hi over the 6 fragments, each pass into
-// its own accumulators (the small terms summed apart from hi*hi: half the
-// error of one shared accumulator, with the truncated split).
-__device__ __forceinline__ void mma_step(
-        float (&acc)[3][kFragsPerWarp][4], const float (&a)[4],
-        const float (&b)[kFragsPerWarp][2]) {
-    uint32_t ahi[4], alo[4];
+__device__ __forceinline__ void his_los(const uint32_t (&ab)[4][2],
+                                        uint32_t (&hi)[4], uint32_t (&lo)[4]) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-        ahi[e] = __float_as_uint(a[e]);
-        alo[e] = lo_of(a[e]);
+        hi[e] = ab[e][0];
+        lo[e] = ab[e][1];
     }
-    uint32_t bhi[kFragsPerWarp][2], blo[kFragsPerWarp][2];
-#pragma unroll
-    for (int j = 0; j < kFragsPerWarp; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-            bhi[j][e] = __float_as_uint(b[j][e]);
-            blo[j][e] = lo_of(b[j][e]);
-        }
-    }
-#pragma unroll
-    for (int j = 0; j < kFragsPerWarp; ++j) mma_tf32(acc[0][j], alo, bhi[j]);
-#pragma unroll
-    for (int j = 0; j < kFragsPerWarp; ++j) mma_tf32(acc[1][j], ahi, blo[j]);
-#pragma unroll
-    for (int j = 0; j < kFragsPerWarp; ++j) mma_tf32(acc[2][j], ahi, bhi[j]);
 }
 
-// The three passes' sums into one: (hi*hi + lo*hi) + hi*lo.
-__device__ __forceinline__ void combine(float (&acc)[kFragsPerWarp][4],
-                                        float (&part)[3][kFragsPerWarp][4]) {
+// keep() for every group of a ring of A operands, after the wait that
+// retires them all
+template <int D>
+__device__ __forceinline__ void keep_all(const uint32_t (&a)[D][2][4][2]) {
 #pragma unroll
-    for (int j = 0; j < kFragsPerWarp; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-            acc[j][e] = (part[2][j][e] + part[0][j][e]) + part[1][j][e];
-}
-
-__device__ __forceinline__ void zero(float (&part)[3][kFragsPerWarp][4]) {
-#pragma unroll
-    for (int p = 0; p < 3; ++p)
-#pragma unroll
-        for (int j = 0; j < kFragsPerWarp; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) part[p][j][e] = 0.0f;
+    for (int i = 0; i < D; ++i) keep(a[i]);
 }
 
 #ifdef GDN_MMA_ONLY
-// timing only (-DGDN_MMA_ONLY): operands from the step index, no loads
-// (distinct per fragment, so that no two MMA chains are the same)
-__device__ __forceinline__ void fake_frags(float (&a)[4],
-                                           float (&b)[kFragsPerWarp][2],
-                                           int ks, int gid) {
-    const uint32_t v = 0x3c000000u + ks + gid;
-    a[0] = a[1] = a[2] = a[3] = __uint_as_float(v);
-#pragma unroll
-    for (int j = 0; j < kFragsPerWarp; ++j)
-        b[j][0] = b[j][1] = __uint_as_float(v + (j << 13));
+__device__ __forceinline__ float fake(int step, int e) {
+    return __uint_as_float(0x3c000000u + step + e);
 }
 #endif
 
-// n - beta = x^2 @ gamma over this warp's 16 rows (xa: row gid, column
-// 2 tig of its x tile) and n-fragments. B[k][n] = gamma[k][n] at k = 8 ks +
-// 2 tig + e, n = 8 (f0 + 4 j) + gid: since k & 7 = 2 tig + e, the swizzle
-// is fixed per e and every address is b_e + 8 ks 192 + 32 j.
-__device__ __forceinline__ void product1(float (&acc)[kFragsPerWarp][4],
-                                         const float* xa, const float* gs,
-                                         int f0, int gid, int tig) {
-    const float* b0 = gs + (2 * tig) * kMaxChannels +
-                      8 * (f0 ^ (swz(2 * tig) >> 3)) + gid;
-    const float* b1 = gs + (2 * tig + 1) * kMaxChannels +
-                      8 * (f0 ^ (swz(2 * tig + 1) >> 3)) + gid;
-    float part[3][kFragsPerWarp][4];
-    zero(part);
-#pragma unroll
-    for (int ks = 0; ks < kKSteps; ++ks) {
-        float a[4], b[kFragsPerWarp][2];
-#ifdef GDN_MMA_ONLY
-        fake_frags(a, b, ks, gid);
-        (void)xa; (void)b0; (void)b1;
-#else
-        const float2 p = *reinterpret_cast<const float2*>(xa + 8 * ks);
-        const float2 q = *reinterpret_cast<const float2*>(
-            xa + 8 * kStride + 8 * ks);
-        a[0] = p.x * p.x; a[1] = q.x * q.x;
-        a[2] = p.y * p.y; a[3] = q.y * q.y;
-#pragma unroll
-        for (int j = 0; j < kFragsPerWarp; ++j) {
-            const int off = 8 * ks * kMaxChannels + 32 * j;
-            b[j][0] = b0[off];
-            b[j][1] = b1[off];
-        }
-#endif
-        mma_step(part, a, b);
-    }
-    combine(acc, part);
-}
+template <typename Raw, bool kInverse>
+__global__ void __cluster_dims__(kCluster, 1, 1)
+__launch_bounds__(kBwdThreads, 1)
+gdn_bwd_kernel(const __grid_constant__ CUtensorMap tmap,
+               const Raw* __restrict__ x, const float* __restrict__ gamma,
+               const float* __restrict__ beta, const Raw* __restrict__ g,
+               Raw* __restrict__ dx, float* __restrict__ u,
+               float* __restrict__ part, int rows, int c, int use_tma) {
+    constexpr int kEs = static_cast<int>(sizeof(Raw));
+    constexpr int kCols = kBoxRow / kEs;     // box columns: 32 or 64
+    constexpr int kCount = kK / kCols;       // boxes per tile: 6 or 3
+    constexpr int kGroups = kCols / 16;      // 16-column groups a box
+    extern __shared__ __align__(16) uint8_t smem_raw[];
+    uint8_t* smem = smem_raw + ((kAlign - (smem_u32(smem_raw) & (kAlign - 1)))
+                                & (kAlign - 1));
+    uint8_t* ring = smem;
+    uint32_t* g1hi = reinterpret_cast<uint32_t*>(smem + kSlots * kBoxBytes);
+    uint32_t* g1lo = g1hi + kGammaWords;
+    uint32_t* g2hi = g1lo + kGammaWords;
+    uint32_t* g2lo = g2hi + kGammaWords;
+    float* uhi = reinterpret_cast<float*>(g2lo + kGammaWords);
+    float* ulo = uhi + kUWords;
+    const uint32_t ring_s = smem_u32(ring);
+    const uint32_t full_s = smem_u32(ulo + kUWords);   // kSlots barriers
+    const uint32_t empty_s = full_s + 8 * kSlots;      // kSlots barriers
+    const uint32_t ufull_s = empty_s + 8 * kSlots;     // u quarters written
+    const uint32_t uempty_s = ufull_s + 8;             // u quarters read
+    const uint32_t uown_s = uempty_s + 8;              // this block's u
+    const uint32_t uread_s = uown_s + 8;               // peers' u read
+    const uint32_t xread_s = uread_s + 8;              // boxes read by rows
+    const uint32_t xfree_s = xread_s + 8;              // ... and freed
+    float* bs = reinterpret_cast<float*>(ulo + kUWords) + 4 * kSlots + 12;
+    float* dbs = bs + kN;                              // [2 halves][kN]
+    // a word that releasing lanes store to (see the box release)
+    volatile uint32_t* sink = reinterpret_cast<uint32_t*>(dbs + 2 * kN);
 
-// u @ gamma^T over this warp's rows (ua: its 24 k-steps of u in fragment
-// order, lane's float4 at ua + 4 lane) and n-fragments. B[k][n] =
-// gamma[n][k] at n = 8 (f0 + 4 j) + gid, k = 8 ks + 2 tig: swz(n) =
-// swz(gid), so the pair sits at bt + 8 (ks ^ s) + 32 j 192.
-__device__ __forceinline__ void product2(float (&acc)[kFragsPerWarp][4],
-                                         const float* ua, const float* gs,
-                                         int f0, int gid, int tig, int lane) {
-    const float* bt = gs + (8 * f0 + gid) * kMaxChannels + 2 * tig;
-    const int s = swz(gid) >> 3;
-    float part[3][kFragsPerWarp][4];
-    zero(part);
-#pragma unroll
-    for (int ks = 0; ks < kKSteps; ++ks) {
-        float a[4], b[kFragsPerWarp][2];
-#ifdef GDN_MMA_ONLY
-        fake_frags(a, b, ks, gid);
-        (void)ua; (void)bt; (void)s; (void)lane;
-#else
-        const float4 v = *reinterpret_cast<const float4*>(
-            ua + (ks * 32 + lane) * 4);
-        a[0] = v.x; a[1] = v.y; a[2] = v.z; a[3] = v.w;
-        const float* bk = bt + 8 * (ks ^ s);
-#pragma unroll
-        for (int j = 0; j < kFragsPerWarp; ++j) {
-            const float2 w = *reinterpret_cast<const float2*>(
-                bk + 32 * j * kMaxChannels);
-            b[j][0] = w.x;
-            b[j][1] = w.y;
-        }
-#endif
-        mma_step(part, a, b);
-    }
-    combine(acc, part);
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b, bool pair,
-                                       bool second) {
-    if (pair) {
-        *reinterpret_cast<float2*>(p) = make_float2(a, b);
-    } else {
-        p[0] = a;
-        if (second) p[1] = b;
-    }
-}
-
-template <bool kInverse>
-__global__ void __launch_bounds__(kThreads, 1)
-gdn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
-               const float* __restrict__ beta, const float* __restrict__ g,
-               float* __restrict__ dx, float* __restrict__ u,
-               long long rows, int c) {
-    extern __shared__ __align__(16) float smem[];
-    PHASE_INIT
-    float* gs = smem;                          // gamma, swizzled
-    float* xbuf = smem + kGammaFloats;         // two x tiles
     const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    const int gid = lane >> 2;
-    const int tig = lane & 3;
-    const int group = warp >> 2;               // rows 16 group .. + 15
-    const int f0 = warp & 3;                   // n-fragments f0 + 4 j
-    const int m0 = kGroupRows * group;
-    // this group's u in fragment order: [24 k-steps][32 lanes][4]
-    float* uw = xbuf + 2 * kTileFloats + group * kKSteps * 32 * 4;
-    const long long ntiles = (rows + kTileRows - 1) / kTileRows;
-    const TileCopy copy(c, group);
-    const bool vec4x = (c & 3) == 0 &&
-                       (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-    const bool pair_g = (c & 1) == 0 &&
-                        (reinterpret_cast<uintptr_t>(g) & 7) == 0;
-    const bool pair_dx = (c & 1) == 0 &&
-                         (reinterpret_cast<uintptr_t>(dx) & 7) == 0;
-    const bool pair_u = (c & 1) == 0 &&
-                        (reinterpret_cast<uintptr_t>(u) & 7) == 0;
+    const int rank = static_cast<int>(cluster_rank());
+    const int n0 = kN * rank;
 
-    long long t = blockIdx.x;
-    load_gamma_swizzled(gs, gamma, c);
-    copy.issue(xbuf, x, rows, c, t, vec4x);
-    cp_async_commit();
-    // zero this group's rows of both x tiles at columns c .. 199, which the
-    // copies never write and the k-loop reads up to 191
-    for (int i = tid % kGroupThreads; i < 2 * kGroupRows * (kStride - c);
-         i += kGroupThreads) {
-        const int k = i / (kStride - c);  // 0 .. 31: tile k / 16, row k % 16
-        xbuf[(k / kGroupRows) * kTileFloats + (m0 + k % kGroupRows) *
-             kStride + c + i % (kStride - c)] = 0.0f;
+    // gamma's hi and lo halves in both orientations, columns n0 .. n0 + 47,
+    // zero-padded
+    for (int e = tid; e < kN * kK; e += kBwdThreads) {
+        const int k = e / kN, n = e - k * kN;
+        const bool in = k < c && n0 + n < c;
+        uint32_t hi, lo;
+        split(in ? gamma[k * c + n0 + n] : 0.0f, hi, lo);
+        g1hi[gamma_word(n, k)] = hi;
+        g1lo[gamma_word(n, k)] = lo;
+        split(in ? gamma[(n0 + n) * c + k] : 0.0f, hi, lo);
+        g2hi[gamma_t_word(n, k)] = hi;
+        g2lo[gamma_t_word(n, k)] = lo;
     }
-    float bcol[kFragsPerWarp][2];
-    load_beta_cols(bcol, beta, c, f0, tig);
-    cp_async_wait_all();
-    __syncthreads();  // gamma, copied by every thread, is complete
+    if (tid < kN) bs[tid] = n0 + tid < c ? beta[n0 + tid] : 1.0f;
+    if (tid == 0) {
+        for (int s = 0; s < kSlots; ++s) {
+            mbar_init(full_s + 8 * s, use_tma ? 1 : 32);
+            mbar_init(empty_s + 8 * s, 4 * kCluster);
+        }
+        mbar_init(ufull_s, kCluster);
+        mbar_init(uempty_s, kCluster + 1);
+        mbar_init(uown_s, 1);
+        mbar_init(uread_s, 1);
+        mbar_init(xread_s, 1);
+        mbar_init(xfree_s, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    // gamma was written by threads and is read by wgmma (the async proxy)
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    cluster_sync();
 
-    // The two groups take turns on the tensor cores: while one runs a
-    // product, the other runs its epilogue, its tile wait and its loads.
-    // Group 0 starts; each product ends by passing the turn on (group 1's
-    // last excepted, which nobody waits for).
-    const int nphases = 2 * static_cast<int>(
-        (ntiles - blockIdx.x + gridDim.x - 1) / gridDim.x);
-    int phase = 0;
-    auto take_turn = [&]() {
-        if (group == 1 || phase > 0) bar_sync(kTurn + group, kThreads);
-    };
-    auto pass_turn = [&]() {
-        if (group == 0 || phase + 1 < nphases)
-            bar_arrive(kTurn + 1 - group, kThreads);
-        ++phase;
-    };
+    const int ntiles = (rows + kRows - 1) / kRows;
+    const int cid = static_cast<int>(cluster_id());
+    const int ncl = static_cast<int>(cluster_count());
+    const int warp = tid >> 5, lane = tid & 31;
+    const int gid = lane >> 2, tig = lane & 3;
+    // this cluster's partial sums: dgamma's rows, then dbeta's
+    float* pp = part + static_cast<long long>(cid) * kPartRows * kK;
+    PHASE_DECL
 
-    for (int it = 0; t < ntiles; t += gridDim.x, ++it) {
-        const float* xs = xbuf + (it & 1) * kTileFloats;
-        const long long r0 = t * kTileRows;
-        cp_async_wait_all();
-        bar_sync(1 + group, kGroupThreads);  // this group's x rows landed;
-                                             // its u and x readers are done
-        if (t + gridDim.x < ntiles)
-            copy.issue(xbuf + ((it + 1) & 1) * kTileFloats, x, rows, c,
-                       t + gridDim.x, vec4x);
-        cp_async_commit();
-        // g at this thread's accumulator positions, for epilogue 1
-        float gv[kFragsPerWarp][4];
+    if (warp >= 8) {
+        // the producer warpgroup: warp 8 loads, box m of the cluster's j-th
+        // tile is ring box kCount j + m; warp 9 relays the row warpgroup's
+        // signals about u to the cluster
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+        if (warp == 9 && lane < kCluster) {
+            // A release at the cluster's scope waits for every memory
+            // operation of its thread to be performed (MEMBAR.GPU): done
+            // here, by lanes with no stores of their own in flight (one
+            // membar for the four, each lane signalling one block), off the
+            // row warpgroup's path. The local waits acquire the row
+            // warpgroup's writes, which the releases then carry.
+            for (int j = 0, t = cid; t < ntiles; ++j, t += ncl) {
+                mbar_wait(uown_s, j & 1);
+                mbar_arrive_release(ufull_s, lane);
+                mbar_wait(uread_s, j & 1);
+                mbar_arrive_release(uempty_s, lane);
+            }
+        }
+        uint32_t gb = 0;
+        for (int t = cid; warp == 8 && t < ntiles; t += ncl) {
+            for (int m = 0; m < kCount; ++m, ++gb) {
+                const uint32_t slot = gb % kSlots;
+                const uint32_t par = ((gb / kSlots) & 1) ^ 1;
+                const uint32_t full = full_s + 8 * slot;
+                if (use_tma) {
+                    if (lane == 0) {
+                        PHASE_MARK
+                        mbar_wait(empty_s + 8 * slot, par);
+                        PHASE_ADD(0)
+                        mbar_expect_tx(full, kBoxBytes);
+                        if (m % kCluster == rank)
+                            tma_multicast(ring_s + slot * kBoxBytes, &tmap,
+                                          kCols * m, kRows * t, full,
+                                          (1u << kCluster) - 1);
+                    }
+                } else {
+                    mbar_wait(empty_s + 8 * slot, par);
+                    uint8_t* box = ring + slot * kBoxBytes;
+                    for (int e = lane; e < kRows * kCols; e += 32) {
+                        const int r = e / kCols, cb = e % kCols;
+                        const int gr = kRows * t + r, col = kCols * m + cb;
+                        *reinterpret_cast<Raw*>(box + swz(r, kEs * cb)) =
+                            gr < rows && col < c
+                                ? x[static_cast<long long>(gr) * c + col]
+                                : Raw(0);
+                    }
+                    mbar_arrive(full);
+                }
+            }
+        }
+    } else if (warp >= 4) {
+        // the dgamma warpgroup: product 3, dgamma[64 mt + ..][n0 + ..] +=
+        // (x^2)^T @ u over each tile's rows, and dbeta's sums. A (M =
+        // gamma's row j, K = the tile's row at K position p) is gathered from
+        // the boxes: slots tig and tig + 4 of k-step ks are K positions
+        // 8 ks + tig (+ 4), MMA rows gid and gid + 8 columns 64 mt + 16 w +
+        // gid (+ 8). B is u's transposed quarter.
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+        const int w = warp - 4, wt = tid - 128;
+        const uint64_t duhi = make_desc<kUSbo>(smem_u32(uhi));
+        const uint64_t dulo = make_desc<kUSbo>(smem_u32(ulo));
+        float acc3[3][24];  // kFlush tiles' sums
 #pragma unroll
-        for (int j = 0; j < kFragsPerWarp; ++j) {
-            const int col = 8 * (f0 + kWarpsN * j) + 2 * tig;
+        for (int mt = 0; mt < 3; ++mt)
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const long long row = r0 + m0 + gid + 8 * h;
-                float2 v = make_float2(0.0f, 0.0f);
-                if (row < rows && col < c) {
-                    const float* p = g + row * c + col;
-                    if (pair_g) {
-                        v = *reinterpret_cast<const float2*>(p);
-                    } else {
-                        v.x = p[0];
-                        if (col + 1 < c) v.y = p[1];
+            for (int q = 0; q < 24; ++q) acc3[mt][q] = 0.0f;
+        // dbeta: thread wt < 96 sums K positions 32 (wt / 48) .. + 31 of
+        // column n0 + wt % 48, in order
+        float dbt = 0.0f;
+        const float* dbu = uhi + u_word(wt % kN, 32 * (wt / kN));
+        uint32_t a[kDepth][2][4][2];  // A operands of the groups in flight
+        for (int j = 0, t = cid; t < ntiles; ++j, t += ncl) {
+            const uint32_t g0 = kCount * j;
+            PHASE_MARK
+            // the tile's boxes have landed: this thread's A values of the
+            // whole tile, x^2 of register e of k-step ks of third mt, into
+            // registers, so that the boxes can go back to the ring early
+#pragma unroll
+            for (int m = 0; m < kCount; ++m)
+                mbar_wait(full_s + 8 * ((g0 + m) % kSlots),
+                          ((g0 + m) / kSlots) & 1);
+            float sq[3][kRows / 8][4];
+            uint32_t read = 0;  // a bit of every load, for the release
+#pragma unroll
+            for (int mt = 0; mt < 3; ++mt)
+#pragma unroll
+                for (int ks = 0; ks < kRows / 8; ++ks)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        // register e: MMA row gid + 8 (e & 1), slot tig +
+                        // 4 (e >> 1)
+                        const int jj = 64 * mt + 16 * w + gid + 8 * (e & 1);
+                        const int r = kpos_row(8 * ks + tig + 4 * (e >> 1));
+#ifdef GDN_MMA_ONLY
+                        const float xv = fake(ks, e + jj);
+                        (void)r;
+#else
+                        const uint32_t slot = (g0 + jj / kCols) % kSlots;
+                        const float xv = widen(*reinterpret_cast<const Raw*>(
+                            ring + slot * kBoxBytes +
+                            swz(r, kEs * (jj % kCols))));
+#endif
+                        // x^2 rounded, as gdn_plain forms it
+                        sq[mt][ks][e] = __fmul_rn(xv, xv);
+                        read ^= __float_as_uint(sq[mt][ks][e]);
+                    }
+            // the row warpgroup has read the boxes too
+            mbar_wait(xread_s, j & 1);
+            PHASE_ADD(10)
+            PHASE_MARK
+            // free the tile's boxes (this block's copies) in the four
+            // blocks' rings. The arrive's release (at the block's scope)
+            // does not wait for this warp's shared-memory loads before the
+            // TMA write it lets in (the async proxy), so the releasing lanes
+            // first store a value computed from every load (one instruction
+            // for the whole warp each), which cannot issue before they have
+            // returned.
+            __syncwarp();
+            if (lane < kCluster) {
+                *sink = read;
+#pragma unroll
+                for (int m = 0; m < kCount; ++m)
+                    mbar_arrive_cluster(empty_s + 8 * ((g0 + m) % kSlots),
+                                        lane);
+            }
+            __syncwarp();
+            named_sync(2);
+            if (wt == 0) mbar_arrive(xfree_s);
+            // this block's u quarter of the tile is written
+            mbar_wait(uown_s, j & 1);
+#pragma unroll
+            for (int mt = 0; mt < 3; ++mt) {
+#pragma unroll
+                for (int kp = 0; kp < kRows / 16; ++kp) {
+                    const int q = 4 * mt + kp;  // the tile's group
+                    uint32_t(&ab)[2][4][2] = a[q % kDepth];
+                    split4(sq[mt][2 * kp], ab[0]);
+                    split4(sq[mt][2 * kp + 1], ab[1]);
+                    wgmma_fence();
+#pragma unroll
+                    for (int p = 0; p < 2; ++p) {
+                        const uint64_t step = 16 * (2 * kp + p);
+                        uint32_t ahi[4], alo[4];
+                        his_los(ab[p], ahi, alo);
+                        mma3(acc3[mt], ahi, alo, duhi + step, dulo + step);
+                    }
+                    wgmma_commit();
+                    wgmma_wait<kDepth - 1>();
+                    if (q >= kDepth - 1)  // its MMAs are done
+                        keep(a[(q - kDepth + 1) % kDepth]);
+                }
+            }
+            // dbeta's sums of the tile while the last MMAs run
+            if (wt < 2 * kN) {
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    const float4 v = *reinterpret_cast<const float4*>(
+                        dbu + i * (kLbo / 4));
+                    dbt = (((dbt + v.x) + v.y) + v.z) + v.w;
+                }
+            }
+            wgmma_wait<0>();
+            keep_all(a);
+            // the quarter's reads are done
+            named_sync(2);
+            if (wt == 0) mbar_arrive(uempty_s);
+            PHASE_ADD(5)
+
+            // every kFlush tiles and after the last, add dgamma's sums to
+            // the cluster's partial (each thread its own words: the same
+            // order at every launch) and start them afresh
+            if ((j + 1) % kFlush == 0 || t + ncl >= ntiles) {
+#pragma unroll
+                for (int mt = 0; mt < 3; ++mt) {
+                    fence_acc(acc3[mt]);
+#pragma unroll
+                    for (int n = 0; n < kNGroups; ++n)
+#pragma unroll
+                        for (int h = 0; h < 2; ++h) {
+                            const int jr = 64 * mt + 16 * w + gid + 8 * h;
+                            float2* p = reinterpret_cast<float2*>(
+                                pp + jr * kK + n0 + 8 * n + 2 * tig);
+                            float2 v = make_float2(acc3[mt][4 * n + 2 * h],
+                                                   acc3[mt][4 * n + 2 * h + 1]);
+                            if (j >= kFlush) {
+                                const float2 o = *p;
+                                v = make_float2(o.x + v.x, o.y + v.y);
+                            }
+                            *p = v;
+                            acc3[mt][4 * n + 2 * h] = 0.0f;
+                            acc3[mt][4 * n + 2 * h + 1] = 0.0f;
+                        }
+                }
+            }
+        }
+        // dbeta's partial: the two halves of each column, in order
+        if (wt < 2 * kN) dbs[wt] = dbt;
+        named_sync(2);
+        if (wt < kN) pp[kMaxChannels * kK + n0 + wt] = dbs[wt] + dbs[kN + wt];
+    } else {
+        // the row warpgroup: product 1, epilogue 1, product 2, epilogue 2
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+        // this thread's two tile rows (MMA rows gid and gid + 8 of the warp)
+        // and their K position in u's quarter (rh's is one more)
+        const int rl = 16 * warp + tile_row(gid), rh = rl + 8;
+        const int pl = 16 * warp + 2 * gid;
+        const uint64_t d1hi = make_desc(smem_u32(g1hi));
+        const uint64_t d1lo = make_desc(smem_u32(g1lo));
+        const uint64_t d2hi = make_desc(smem_u32(g2hi));
+        const uint64_t d2lo = make_desc(smem_u32(g2lo));
+        // product 2's A: u[rl][j] and u[rh][j] of block j / 48 at its words
+        // u_word(j % 48, pl) and one on, a byte address in the cluster's
+        // window
+        uint32_t ub[kCluster];
+#pragma unroll
+        for (int q = 0; q < kCluster; ++q) ub[q] = mapa(smem_u32(uhi), q);
+        const uint32_t uoff = 4u * static_cast<uint32_t>(u_word(tig, pl));
+        const bool pairs_g = (c & 1) == 0 &&
+            (reinterpret_cast<uintptr_t>(g) & (2 * kEs - 1)) == 0;
+        const bool pairs_dx = (c & 1) == 0 &&
+            (reinterpret_cast<uintptr_t>(dx) & (2 * kEs - 1)) == 0;
+        const bool pairs_u = (c & 1) == 0 &&
+            (reinterpret_cast<uintptr_t>(u) & 7) == 0;
+
+        for (int j = 0, t = cid; t < ntiles; ++j, t += ncl) {
+            const uint32_t g0 = kCount * j;
+            const long long row_l = static_cast<long long>(t) * kRows + rl;
+            const long long row_h = row_l + 8;
+            // g at this thread's outputs as stored (0 past R and C), for
+            // epilogue 1: widened only there, so that the loads' latency
+            // runs under product 1
+            typename Pair<Raw>::T gp[kNGroups][2];
+#pragma unroll
+            for (int n = 0; n < kNGroups; ++n) {
+                const int col = n0 + 8 * n + 2 * tig;
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const long long row = h ? row_h : row_l;
+                    gp[n][h] = typename Pair<Raw>::T();
+                    if (row < rows && col < c) {
+                        const Raw* p = g + row * c + col;
+                        gp[n][h] = pairs_g ? load_pair(p)
+                                           : pair_of(p[0], col + 1 < c
+                                                               ? p[1]
+                                                               : Raw(0));
                     }
                 }
-                gv[j][2 * h] = v.x;
-                gv[j][2 * h + 1] = v.y;
             }
-        }
-        if (it == 0) PHASE(0);  // gamma and the first tile
-        else PHASE(1);          // a tile wait
-        take_turn();
-        PHASE(6);
 
-        float acc[kFragsPerWarp][4];
-        product1(acc, xs + (m0 + gid) * kStride + 2 * tig, gs, f0, gid,
-                 tig);
-        pass_turn();
-        PHASE(2);
+            // product 1: n - beta = x^2 @ gamma over the block's columns
+            float acc[24];
+#pragma unroll
+            for (int q = 0; q < 24; ++q) acc[q] = 0.0f;
+            uint32_t a[kDepth][2][4][2];  // A operands of the groups in
+                                          // flight: [group][k-step][reg][hi,
+                                          // lo]
+            typename Pair<Raw>::T xe[kNGroups][2];  // x at the outputs
+            PHASE_MARK
+#pragma unroll
+            for (int m = 0; m < kCount; ++m) {
+                const uint32_t slot = (g0 + m) % kSlots;
+                PHASE_ADD(1)
+                PHASE_MARK
+                mbar_wait(full_s + 8 * slot, ((g0 + m) / kSlots) & 1);
+                PHASE_ADD(2)
+                PHASE_MARK
+                const uint8_t* box = ring + slot * kBoxBytes;
+                uint32_t read = 0;  // a bit of every load of x at the outputs
+#pragma unroll
+                for (int h = 0; h < kGroups; ++h) {
+                    // columns 16 q .. 16 q + 15 of the tile: k-steps 2q, 2q+1
+                    const int q = kGroups * m + h;
+                    float v[2][4];
+#ifdef GDN_MMA_ONLY
+                    for (int e = 0; e < 4; ++e)
+                        v[0][e] = v[1][e] = fake(q, e);
+                    (void)box;
+#else
+                    const int b = kEs * (16 * h + 4 * tig);
+                    load4(reinterpret_cast<const Raw*>(box + swz(rl, b)),
+                          v[0]);
+                    load4(reinterpret_cast<const Raw*>(box + swz(rh, b)),
+                          v[1]);
+#endif
+#pragma unroll
+                    for (int s = 0; s < 2; ++s) {
+                        // n8-group 2q + s of the 24: columns of rank
+                        // (2q + s) / 6
+                        if ((2 * q + s) / kNGroups == rank) {
+                            const int i = (2 * q + s) % kNGroups;
+#ifdef GDN_MMA_ONLY
+                            xe[i][0] = xe[i][1] =
+                                typename Pair<Raw>::T();
+#else
+                            const int be = kEs * (16 * h + 8 * s + 2 * tig);
+                            xe[i][0] = load_pair(
+                                reinterpret_cast<const Raw*>(box + swz(rl, be)));
+                            xe[i][1] = load_pair(
+                                reinterpret_cast<const Raw*>(box + swz(rh, be)));
+#endif
+                            read ^= bits(xe[i][0]) ^ bits(xe[i][1]);
+                        }
+                    }
+                    uint32_t(&ab)[2][4][2] = a[q % kDepth];
+#pragma unroll
+                    for (int p = 0; p < 2; ++p) {
+                        // x^2 rounded, as gdn_plain forms it (never an FMA)
+                        float sq[4];
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) {
+                            const float xv = v[e & 1][2 * p + (e >> 1)];
+                            sq[e] = __fmul_rn(xv, xv);
+                        }
+                        split4(sq, ab[p]);
+                    }
+                    wgmma_fence();
+#pragma unroll
+                    for (int p = 0; p < 2; ++p) {
+                        // k-step 2q + p: 256 bytes (two k-chunks) each
+                        const uint64_t step = 16 * (2 * q + p);
+                        uint32_t ahi[4], alo[4];
+                        his_los(ab[p], ahi, alo);
+                        mma3(acc, ahi, alo, d1hi + step, d1lo + step);
+                    }
+                    wgmma_commit();
+                    wgmma_wait<kDepth - 1>();
+                    if (q >= kDepth - 1)  // its MMAs are done
+                        keep(a[(q - kDepth + 1) % kDepth]);
+                }
+                if (lane == 0) *sink = read;
+            }
+            // this warpgroup's reads of the boxes have returned (the sink's
+            // value depends on every load of x at the outputs; the A
+            // operands' fed the MMAs): the dgamma warpgroup may free them
+            named_sync(1);
+            if (tid == 0) {
+                // (the previous tile's boxes were freed: a phase of xread
+                // is never two ahead of its waiter)
+                if (j > 0) mbar_wait(xfree_s, (j - 1) & 1);
+                mbar_arrive(xread_s);
+            }
+            wgmma_wait<0>();
+            fence_acc(acc);
+            keep_all(a);
+            PHASE_ADD(1)
+            PHASE_MARK
 
-        // epilogue 1: u to shared memory in fragment order (0 past C) and
-        // to global memory; keep the first term of dx in registers
-        float first[kFragsPerWarp][4];
+            // every block has read the previous tile's u quarters, and this
+            // block's dgamma warpgroup has run its product on this one's
+            if (j > 0) mbar_wait_acquire(uempty_s, (j - 1) & 1);
+            PHASE_ADD(4)
+            PHASE_MARK
+            // epilogue 1: u (to the transposed quarter, its hi and lo, and
+            // to device memory if asked), dx's first term g n^-/+1/2
+            float gv[kNGroups][4];
 #pragma unroll
-        for (int j = 0; j < kFragsPerWarp; ++j) {
-            const int col = 8 * (f0 + kWarpsN * j) + 2 * tig;
-            float uu[4];
+            for (int n = 0; n < kNGroups; ++n) {
+                const int cl = 8 * n + 2 * tig;  // the block's column
+                const int col = n0 + cl;
+                const float2 b = *reinterpret_cast<const float2*>(bs + cl);
+                float uu[2][2];  // [row h][column e]
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int r = m0 + gid + 8 * h;
-                const float2 xe =
-                    *reinterpret_cast<const float2*>(xs + r * kStride + col);
-                const float xa2[2] = {xe.x, xe.y};
+                for (int h = 0; h < 2; ++h) {
+                    const long long row = h ? row_h : row_l;
+                    const float2 xv = widen2(xe[n][h]);
+                    const float2 gw = widen2(gp[n][h]);
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const int k = 2 * h + e;
+                        const float norm = acc[4 * n + k] + (e ? b.y : b.x);
+                        const float rs = rsqrt_ftz(norm);
+                        const float gk = e ? gw.y : gw.x;
+                        const float xk = e ? xv.y : xv.x;
+                        // GDN: u = g x n^-3/2, g n^-1/2; IGDN: u = g x
+                        // n^-1/2, g n^1/2 (sqrt as norm * rsqrt)
+                        uu[h][e] = row < rows && col + e < c
+                                       ? (kInverse ? gk * xk * rs
+                                                   : gk * xk * (rs * rs * rs))
+                                       : 0.0f;
+                        gv[n][k] = kInverse ? gk * (norm * rs) : gk * rs;
+                    }
+                    if (u != nullptr && row < rows && col < c) {
+                        float* p = u + row * c + col;
+                        if (pairs_u) {
+                            store2(p, uu[h][0], uu[h][1]);
+                        } else {
+                            p[0] = uu[h][0];
+                            if (col + 1 < c) p[1] = uu[h][1];
+                        }
+                    }
+                }
 #pragma unroll
                 for (int e = 0; e < 2; ++e) {
-                    const int k = 2 * h + e;
-                    const float norm = acc[j][k] + bcol[j][e];
-                    const float rs = rsqrtf(norm);
-                    const float gk = gv[j][k];
-                    // GDN: u = g x n^-3/2, g n^-1/2; IGDN: u = g x n^-1/2,
-                    // g n^1/2 (sqrt as norm * rsqrt, within 2 ulp)
-                    uu[k] = col + e < c
-                                ? (kInverse ? gk * xa2[e] * rs
-                                            : gk * xa2[e] * (rs * rs * rs))
-                                : 0.0f;
-                    first[j][k] = kInverse ? gk * (norm * rs) : gk * rs;
+                    // rows rl and rh at K positions pl and pl + 1
+                    const int w = u_word(cl + e, pl);
+                    uint32_t hi, lo0, lo1;
+                    split_a(uu[0][e], hi, lo0);
+                    split_a(uu[1][e], hi, lo1);
+                    *reinterpret_cast<float2*>(uhi + w) =
+                        make_float2(uu[0][e], uu[1][e]);
+                    *reinterpret_cast<float2*>(ulo + w) = make_float2(
+                        __uint_as_float(lo0), __uint_as_float(lo1));
                 }
-                if (col < c && r0 + r < rows)
-                    store2(u + (r0 + r) * c + col, uu[2 * h], uu[2 * h + 1],
-                           pair_u, col + 1 < c);
             }
-            // fragment order of k-step f = f0 + 4 j: rows gid / gid + 8 x
-            // slots tig / tig + 4 (columns 2 tig / 2 tig + 1)
-            *reinterpret_cast<float4*>(uw + ((f0 + kWarpsN * j) * 32 +
-                                             lane) * 4) =
-                make_float4(uu[0], uu[2], uu[1], uu[3]);
-        }
-        bar_sync(1 + group, kGroupThreads);  // this group's u is complete
-        PHASE(3);
-        take_turn();
-        PHASE(6);
+            // the quarter is read by wgmma (the async proxy) and by the
+            // peers' loads: all four warps' writes first
+            asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+            named_sync(1);
+            if (tid == 0) mbar_arrive(uown_s);
+            PHASE_ADD(3)
+            PHASE_MARK
 
-        product2(acc, uw, gs, f0, gid, tig, lane);
-        pass_turn();
-        PHASE(4);
+            // product 2: (u @ gamma^T)[row][n0 + ..], A = u's 192 columns
+            // from the four blocks' quarters, kAhead k-step groups ahead
+            mbar_wait_acquire(ufull_s, j & 1);
+            PHASE_ADD(6)
+            PHASE_MARK
 #pragma unroll
-        for (int j = 0; j < kFragsPerWarp; ++j) {
-            const int col = 8 * (f0 + kWarpsN * j) + 2 * tig;
-            if (col >= c) continue;
+            for (int q = 0; q < 24; ++q) acc[q] = 0.0f;
+            float nv[kAhead][2][4];  // the next groups' values
+            // k-step ks: columns 8 ks + tig (+ 4) of block ks / 6, rows rl
+            // and rh (adjacent words)
+            auto fetch = [&](float (&v)[2][4], int grp) {
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int r = m0 + gid + 8 * h;
-                if (r0 + r >= rows) continue;
-                const float2 xe =
-                    *reinterpret_cast<const float2*>(xs + r * kStride + col);
-                const float xa2[2] = {xe.x, xe.y};
-                float out[2];
+                for (int p = 0; p < 2; ++p) {
+                    const int ks = 2 * grp + p;
 #pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const int k = 2 * h + e;
-                    out[e] = kInverse ? first[j][k] + xa2[e] * acc[j][k]
-                                      : first[j][k] - xa2[e] * acc[j][k];
+                    for (int s = 0; s < 2; ++s) {
+#ifdef GDN_MMA_ONLY
+                        v[p][2 * s] = v[p][2 * s + 1] = fake(ks, s);
+#else
+                        const float2 w = ld_cluster2(
+                            ub[ks / kNGroups] + uoff +
+                            4u * ((ks % kNGroups) * (kUSbo / 4) + 16 * s));
+                        v[p][2 * s] = w.x;
+                        v[p][2 * s + 1] = w.y;
+#endif
+                    }
                 }
-                store2(dx + (r0 + r) * c + col, out[0], out[1], pair_dx,
-                       col + 1 < c);
+            };
+#pragma unroll
+            for (int q = 0; q < kAhead; ++q) fetch(nv[q], q);
+#pragma unroll
+            for (int q = 0; q < kK / 16; ++q) {
+                float cv[2][4];
+#pragma unroll
+                for (int p = 0; p < 2; ++p)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        cv[p][e] = nv[q % kAhead][p][e];
+                if (q + kAhead < kK / 16) fetch(nv[q % kAhead], q + kAhead);
+                uint32_t(&ab)[2][4][2] = a[q % kDepth];
+                split4(cv[0], ab[0]);
+                split4(cv[1], ab[1]);
+                wgmma_fence();
+#pragma unroll
+                for (int p = 0; p < 2; ++p) {
+                    const uint64_t step = 16 * (2 * q + p);
+                    uint32_t ahi[4], alo[4];
+                    his_los(ab[p], ahi, alo);
+                    mma3(acc, ahi, alo, d2hi + step, d2lo + step);
+                }
+                wgmma_commit();
+                wgmma_wait<kDepth - 1>();
+                if (q >= kDepth - 1) keep(a[(q - kDepth + 1) % kDepth]);
             }
+            // every u value this block needed has been read (each fed an
+            // MMA's operands): the blocks may overwrite their quarters
+            named_sync(1);
+            if (tid == 0) mbar_arrive(uread_s);
+            wgmma_wait<0>();
+            fence_acc(acc);
+            keep_all(a);
+            PHASE_ADD(7)
+            PHASE_MARK
+
+            // epilogue 2: dx = first -/+ x (u @ gamma^T)
+#pragma unroll
+            for (int n = 0; n < kNGroups; ++n) {
+                const int col = n0 + 8 * n + 2 * tig;
+                if (col >= c) continue;
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const long long row = h ? row_h : row_l;
+                    if (row >= rows) continue;
+                    const float2 xv = widen2(xe[n][h]);
+                    const float o0 = kInverse
+                        ? gv[n][2 * h] + xv.x * acc[4 * n + 2 * h]
+                        : gv[n][2 * h] - xv.x * acc[4 * n + 2 * h];
+                    const float o1 = kInverse
+                        ? gv[n][2 * h + 1] + xv.y * acc[4 * n + 2 * h + 1]
+                        : gv[n][2 * h + 1] - xv.y * acc[4 * n + 2 * h + 1];
+                    Raw* p = dx + row * c + col;
+                    if (pairs_dx) {
+                        store2(p, o0, o1);
+                    } else {
+                        p[0] = narrow(o0, Raw());
+                        if (col + 1 < c) p[1] = narrow(o1, Raw());
+                    }
+                }
+            }
+            PHASE_ADD(8)
         }
-        PHASE(5);
     }
-    PHASE_SAVE
+#ifdef GDN_PHASES
+    if (blockIdx.x == 0 && (tid == 0 || tid == 128 || tid == 256)) {
+        if (tid == 0) {
+            for (int i = 1; i < 9; ++i) g_phase[i] = ph[i];
+            g_phase[9] = clock64() - ph_t0;
+        } else if (tid == 128) {
+            g_phase[5] = ph[5];
+            g_phase[10] = ph[10];
+        } else {
+            g_phase[0] = ph[0];
+        }
+    }
+#endif
+    // no block leaves while its peers may still read its u quarter or
+    // arrive on its barriers
+    cluster_sync();
 }
 
-template <bool kInverse>
-cudaError_t launch(const float* x, const float* gamma, const float* beta,
-                   const float* g, float* dx, float* u, long long rows, int c,
+// dgamma[j][i] = scale sum_k part[k][j][i], dbeta[i] = scale sum_k
+// part[k][192][i], the partials in cluster order.
+__global__ void gdn_bwd_reduce_kernel(const float* __restrict__ part,
+                                      int parts, int c, float scale,
+                                      float* __restrict__ dgamma,
+                                      float* __restrict__ dbeta) {
+    const int e = blockIdx.x * blockDim.x + threadIdx.x;
+    if (e >= (c + 1) * c) return;
+    const int j = e / c, i = e - j * c;
+    const float* p = part + (j < c ? j : kMaxChannels) * kK + i;
+    float s = 0.0f;
+    for (int k = 0; k < parts; ++k)
+        s += p[static_cast<long long>(k) * kPartRows * kK];
+    if (j < c)
+        dgamma[e] = scale * s;
+    else
+        dbeta[i] = scale * s;
+}
+
+// Per device and variant: clusters that fit at once (0 until set up). The
+// shared-memory limit is raised and the count read once, not per launch.
+int g_clusters[kMaxDevices][4];
+std::mutex g_setup;
+
+template <typename Raw, bool kInverse>
+cudaError_t launch(const Raw* x, const float* gamma, const float* beta,
+                   const Raw* g, Raw* dx, float* u, float* part,
+                   long long part_floats, long long rows, int c, int* parts,
                    cudaStream_t stream) {
-    int blocks = 0;
-    const cudaError_t err = persistent_grid(
-        gdn_bwd_kernel<kInverse>, kInverse, kSmemBytes, rows, blocks);
+    auto kernel = gdn_bwd_kernel<Raw, kInverse>;
+    constexpr int variant = 2 * (sizeof(Raw) == 2) + kInverse;
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
-    gdn_bwd_kernel<kInverse><<<blocks, kThreads, kSmemBytes, stream>>>(
-        x, gamma, beta, g, dx, u, rows, c);
+    if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    if (g_clusters[dev][variant] == 0) {
+        std::lock_guard<std::mutex> lock(g_setup);
+        if (g_clusters[dev][variant] == 0) {
+            err = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+            if (err != cudaSuccess) return err;
+            cudaLaunchConfig_t cfg = {};
+            cfg.gridDim = dim3(kCluster, 1, 1);
+            cfg.blockDim = dim3(kBwdThreads, 1, 1);
+            cfg.dynamicSmemBytes = kSmem;
+            int n = 0;
+            err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+            if (err != cudaSuccess) return err;
+            if (n <= 0) return cudaErrorInvalidConfiguration;
+            g_clusters[dev][variant] = n;
+        }
+    }
+    const long long tiles = (rows + kRows - 1) / kRows;
+    const int clusters = static_cast<int>(
+        tiles < g_clusters[dev][variant] ? tiles : g_clusters[dev][variant]);
+    if (static_cast<long long>(clusters) * kPartRows * kK > part_floats)
+        return cudaErrorInvalidValue;
+
+    constexpr int es = static_cast<int>(sizeof(Raw));
+    CUtensorMap map = {};
+    const bool use_tma = (c * es) % 16 == 0 && c >= kBoxRow / es &&
+                         (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+    if (use_tma) {
+        const CUresult r = encode_rows(&map, x, rows, c, es);
+        if (r == CUDA_ERROR_NOT_SUPPORTED) return cudaErrorNotSupported;
+        if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+    }
+    kernel<<<kCluster * clusters, kBwdThreads, kSmem, stream>>>(
+        map, x, gamma, beta, g, dx, u, part, static_cast<int>(rows), c,
+        use_tma ? 1 : 0);
+    *parts = clusters;
     return cudaGetLastError();
 }
 
-}  // namespace
-
-// x, g, dx, u: [rows, channels] float32, contiguous; gamma [channels,
-// channels]; beta [channels]; 1 <= channels <= 192. Enqueues on `stream` on
-// the current device and does not synchronise. Returns a cudaError_t.
-extern "C" int epic_gdn_backward(const float* x, const float* gamma,
-                                 const float* beta, const float* g, float* dx,
-                                 float* u, long long rows, int channels,
-                                 int inverse, void* stream) {
-    if (channels <= 0 || channels > kMaxChannels || rows < 0)
+template <typename Raw>
+int backward(const Raw* x, const float* gamma, const float* beta,
+             const Raw* g, Raw* dx, float* u, float* part,
+             long long part_floats, long long rows, int channels,
+             int inverse, int* parts, void* stream) {
+    *parts = 0;
+    if (channels <= 0 || channels > kMaxChannels || rows < 0 ||
+        rows > (1LL << 31) - 2 * kRows || part == nullptr)
         return static_cast<int>(cudaErrorInvalidValue);
     if (rows == 0) return 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return static_cast<int>(
-        inverse ? launch<true>(x, gamma, beta, g, dx, u, rows, channels, s)
-                : launch<false>(x, gamma, beta, g, dx, u, rows, channels, s));
+        inverse ? launch<Raw, true>(x, gamma, beta, g, dx, u, part,
+                                    part_floats, rows, channels, parts, s)
+                : launch<Raw, false>(x, gamma, beta, g, dx, u, part,
+                                     part_floats, rows, channels, parts, s));
+}
+
+}  // namespace
+
+// x, g, dx: [rows, channels] float32 (bf16 == 0) or bf16 (bf16 != 0),
+// contiguous; gamma [channels, channels] and beta [channels] float32;
+// 1 <= channels <= 192. u: [rows, channels] float32, or null (not written).
+// part: float32 scratch of part_floats >= clusters x 193 x 192 (clusters
+// <= SMs / 4), into which each cluster writes its partial dgamma ([192][192],
+// unscaled, zero-padded) and dbeta (row 192); the number of partials goes
+// to *parts (0 when rows == 0), for epic_gdn_backward_reduce. Enqueues on
+// `stream` on the current device and does not synchronise. Returns a
+// cudaError_t (0 on success).
+extern "C" int epic_gdn_backward(const void* x, const float* gamma,
+                                 const float* beta, const void* g, void* dx,
+                                 float* u, float* part, long long part_floats,
+                                 long long rows, int channels, int inverse,
+                                 int bf16, int* parts, void* stream) {
+    if (bf16)
+        return backward(static_cast<const uint16_t*>(x), gamma, beta,
+                        static_cast<const uint16_t*>(g),
+                        static_cast<uint16_t*>(dx), u, part, part_floats,
+                        rows, channels, inverse, parts, stream);
+    return backward(static_cast<const float*>(x), gamma, beta,
+                    static_cast<const float*>(g), static_cast<float*>(dx), u,
+                    part, part_floats, rows, channels, inverse, parts,
+                    stream);
+}
+
+// dgamma ([channels, channels]) and dbeta ([channels]) from `parts` partials
+// of epic_gdn_backward, summed in order and scaled by -1/2 (GDN) or +1/2
+// (inverse). Enqueues on `stream`; returns a cudaError_t.
+extern "C" int epic_gdn_backward_reduce(const float* part, int parts,
+                                        int channels, int inverse,
+                                        float* dgamma, float* dbeta,
+                                        void* stream) {
+    if (channels <= 0 || channels > kMaxChannels || parts < 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int n = (channels + 1) * channels;
+    gdn_bwd_reduce_kernel<<<(n + 255) / 256, 256, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        part, parts, channels, inverse ? 0.5f : -0.5f, dgamma, dbeta);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// Clusters a launch of the variant (bf16, inverse) runs on this device: 0
+// before its first launch.
+extern "C" int epic_gdn_backward_clusters(int bf16, int inverse) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices) return 0;
+    return g_clusters[dev][2 * (bf16 != 0) + (inverse != 0)];
 }
 
 #ifdef GDN_PHASES
-// block 0's phase clocks of the last launch (8 values, see PHASE above)
+// Block 0's clocks of the last launch: producer waits for a free slot; the
+// row warpgroup's product 1 (its box waits excluded), box waits, epilogue
+// 1, waits for the peers to free their u quarters; the dgamma warpgroup's
+// product 3; the row warpgroup's waits for the peers' u, product 2,
+// epilogue 2, its whole run; the dgamma warpgroup's waits for u.
 extern "C" int epic_gdn_bwd_phases(long long* out) {
     return static_cast<int>(
-        cudaMemcpyFromSymbol(out, g_phase, sizeof(long long) * 8));
+        cudaMemcpyFromSymbol(out, g_phase, sizeof(long long) * 11));
 }
 #endif

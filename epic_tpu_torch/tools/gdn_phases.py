@@ -15,16 +15,24 @@ entry point (the repository's earlier mma.sync kernel, say: put it, with
 its ``gdn_common.cuh``, under the git-ignored ``runs/``), timed in the same
 run and held to the library's output within 1e-5 relative.
 
-Backward: builds ``csrc/gdn_bwd.cu`` with ``-DGDN_PHASES`` (its clock64
-timers: gamma and the first tile, tile waits, product 1, epilogue 1,
-product 2, epilogue 2, waits for the tensor-core turn) and with
-``-DGDN_PHASES -DGDN_MMA_ONLY`` (the products' MMAs with no operand loads:
-not the backward's output, the MMAs alone); times both, and the library
-that ``ops/gdn_kernel.py`` builds, at a first_train step's R = 262,144 /
-65,536 / 16,384 (C = 192), with the SM clock nvidia-smi reads under load;
-prints block 0's clocks (thread 0, so its group's), and whether the timed
-copy's dx and u equal the library's bitwise. ``--bwd-source PATH`` adds
-another backward source (an earlier version, say), timed in the same run.
+Backward: builds ``csrc/gdn_bwd.cu`` with ``-DGDN_PHASES`` (clock64 timers
+in block 0: the producer's waits for a free ring slot; the consumer
+row warpgroup's product 1, its box waits, epilogue 1, its waits for the
+peers to free their u quarters, its waits for the peers' u, product 2 and
+epilogue 2; the dgamma warpgroup's product 3 and its waits for u) and the
+two timing-only copies (``-DGDN_MMA_ONLY``,
+``-DGDN_NO_MMA``); times the whole backward (the kernel and its reduction)
+of every copy and of the library that ``ops/gdn_kernel.py`` builds, and
+the kernel alone, at a first_train step's R = 262,144 / 65,536 / 16,384 (C
+= 192), float32 and bf16, beside the bound, with the SM clock nvidia-smi
+reads under load; prints block 0's clocks and whether each copy's output
+equals the library's bitwise. ``--bwd-source PATH`` adds another backward
+source: the repository's earlier mma.sync kernel (PR 12's, dx and u
+alone, float32; ``git show c04272d:epic_tpu_torch/csrc/gdn_bwd.cu`` and its
+``gdn_common.cuh`` under the git-ignored ``runs/``), timed in the same run
+alone and with the ``torch.matmul`` / ``torch.sum`` reductions its wrapper
+ran, and held to 1e-5 (dx) and 1e-4 (dgamma, dbeta) of
+``gdn_backward_plain``.
 
     python3 -m epic_tpu_torch.tools.gdn_phases [--part forward|backward]
         [--fwd-source PATH ...] [--bwd-source PATH ...]
@@ -41,7 +49,8 @@ import numpy as np
 import torch
 
 from ..ops.gdn_kernel import (_FWD_ARGS, BACKWARD_SOURCE, SOURCE, _BUILD_DIR,
-                               _nvcc, gdn, gdn_backward_rows, gdn_plain)
+                               _nvcc, backward_clusters, gdn, gdn_backward,
+                               gdn_backward_plain, gdn_plain)
 
 _NVCC = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -196,30 +205,43 @@ def run_forward(extra_sources=()) -> None:
         torch.cuda.empty_cache()
 
 
-# the backward copies: name -> (source, extra nvcc flags)
-_BWD_PHASES = ["-DGDN_PHASES"]
-_BWD_MMA_ONLY = ["-DGDN_PHASES", "-DGDN_MMA_ONLY"]
-_BWD_PHASE_NAMES = ("gamma + first tile", "tile waits", "product 1",
-                    "epilogue 1", "product 2", "epilogue 2", "turn waits",
-                    "total")
+# the backward copies: name -> nvcc flags (the repository's source)
+_BWD_COPIES = {"bwd": ["-DGDN_PHASES"],
+               "bwd_mma_only": ["-DGDN_PHASES", "-DGDN_MMA_ONLY"],
+               "bwd_no_mma": ["-DGDN_PHASES", "-DGDN_NO_MMA"]}
+_BWD_PHASE_NAMES = ("producer slot waits", "product 1 (box waits "
+                    "excluded)", "box waits", "epilogue 1",
+                    "waits for the peers to free u", "product 3",
+                    "waits for the peers' u", "product 2", "epilogue 2",
+                    "total", "dgamma warpgroup's waits for u")
 BWD_ROWS = (262_144, 65_536, 16_384)
+_PTR, _I64, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 
 def build_backward(extra_sources=()):
     """Compile the backward copies (one nvcc each, all started together);
-    returns {name: (ctypes library, has phase clocks)}."""
-    jobs = {"bwd": (BACKWARD_SOURCE, _BWD_PHASES),
-            "bwd_mma_only": (BACKWARD_SOURCE, _BWD_MMA_ONLY)}
+    returns {name: ctypes library}. An extra source with the old entry
+    point (dx and u alone, float32) is bound as such."""
+    jobs = {n: (BACKWARD_SOURCE, f) for n, f in _BWD_COPIES.items()}
     for i, path in enumerate(extra_sources):
-        jobs[f"extra{i}"] = (os.path.abspath(path), _BWD_PHASES)
+        jobs[f"extra{i}"] = (os.path.abspath(path), [])
     paths = _compile(jobs, os.path.join(_BUILD_DIR, "phases"))
     libs = {}
     for name, path in paths.items():
         lib = ctypes.CDLL(path)
         lib.epic_gdn_backward.restype = ctypes.c_int
-        lib.epic_gdn_backward.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        libs[name] = (lib, hasattr(lib, "epic_gdn_bwd_phases"))
+        if hasattr(lib, "epic_gdn_backward_reduce"):
+            lib.epic_gdn_backward.argtypes = [
+                _PTR] * 7 + [_I64, _I64, _INT, _INT, _INT,
+                             ctypes.POINTER(ctypes.c_int), _PTR]
+            lib.epic_gdn_backward_reduce.restype = ctypes.c_int
+            lib.epic_gdn_backward_reduce.argtypes = [
+                _PTR, _INT, _INT, _INT, _PTR, _PTR, _PTR]
+        else:
+            lib.epic_gdn_backward.argtypes = [_PTR] * 6 + [
+                _I64, _INT, _INT, _PTR]
+        libs[name] = lib
+        print(f"{name}: {_sass_counts(path)}", flush=True)
     for i, path in enumerate(extra_sources):
         print(f"extra{i}: {path}", flush=True)
     return libs
@@ -239,6 +261,68 @@ def sm_clock_mhz_under_load(fn, launches: int = 1000) -> float:
     return float(out.split()[0])
 
 
+def _bwd_bound_ms(rows: int, c: int, elem: int) -> float:
+    """max(9 x 2RC^2 at 495 TFLOP/s, (3 elem RC + 4C^2 + 4C) B at 3.35
+    TB/s): the whole backward (three 3xTF32 products; x, g read, dx
+    written), the published H100 SXM peaks."""
+    ops = 9 * 2.0 * rows * c * c / 495e12
+    io = (3.0 * elem * rows * c + 4 * c * c + 4 * c) / 3.35e12
+    return 1e3 * max(ops, io)
+
+
+def _launcher(name, lib, x, gamma, beta, g, inverse):
+    """A function that runs one whole backward through `lib` (the kernel
+    and its reduction; an old source: its kernel, then dgamma and dbeta
+    reduced with torch.matmul and torch.sum as its wrapper did), and one
+    that runs the kernel alone; both return (dx, dgamma, dbeta)."""
+    rows, c = x.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    dx = torch.empty_like(x)
+    if hasattr(lib, "epic_gdn_backward_reduce"):
+        cap = (torch.cuda.get_device_properties(0).multi_processor_count
+               // 4) * 193 * 192
+        part = torch.empty(cap, device="cuda")
+        dgamma = torch.empty((c, c), device="cuda")
+        dbeta = torch.empty((c,), device="cuda")
+        parts = ctypes.c_int(0)
+
+        def kernel():
+            rc = lib.epic_gdn_backward(
+                x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                g.data_ptr(), dx.data_ptr(), None, part.data_ptr(), cap,
+                rows, c, inverse, int(x.dtype is torch.bfloat16),
+                ctypes.byref(parts), stream)
+            if rc:
+                raise RuntimeError(f"{name}: CUDA error {rc}")
+
+        def whole():
+            kernel()
+            rc = lib.epic_gdn_backward_reduce(
+                part.data_ptr(), parts.value, c, inverse, dgamma.data_ptr(),
+                dbeta.data_ptr(), stream)
+            if rc:
+                raise RuntimeError(f"{name}: CUDA error {rc}")
+            return dx, dgamma, dbeta
+    else:
+        if x.dtype is not torch.float32:
+            return None, None
+        u = torch.empty_like(x)
+        s = 0.5 if inverse else -0.5
+
+        def kernel():
+            rc = lib.epic_gdn_backward(
+                x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                g.data_ptr(), dx.data_ptr(), u.data_ptr(), rows, c, inverse,
+                stream)
+            if rc:
+                raise RuntimeError(f"{name}: CUDA error {rc}")
+
+        def whole():
+            kernel()
+            return dx, s * ((x * x).T @ u), s * u.sum(dim=0)
+    return whole, kernel
+
+
 def run_backward(extra_sources=()) -> None:
     libs = build_backward(extra_sources)
     rng = np.random.default_rng(0)
@@ -248,43 +332,60 @@ def run_backward(extra_sources=()) -> None:
     beta = torch.as_tensor((1.0 + 0.1 * rng.random(c)).astype(np.float32),
                            device="cuda")
     for rows in BWD_ROWS:
-        x = torch.as_tensor(rng.normal(0, 1, (rows, c)).astype(np.float32),
-                            device="cuda")
-        g = torch.as_tensor(rng.normal(0, 1, (rows, c)).astype(np.float32),
-                            device="cuda")
-        for inverse in (0, 1):
-            kind = "igdn" if inverse else "gdn "
-            want = gdn_backward_rows(x, gamma, beta, g, bool(inverse))
-            ms = _ms(lambda: gdn_backward_rows(x, gamma, beta, g,
-                                               bool(inverse)))
-            print(f"R={rows} library      {kind} {ms:.4f} ms", flush=True)
-            if rows == BWD_ROWS[0]:
-                mhz = sm_clock_mhz_under_load(lambda: gdn_backward_rows(
-                    x, gamma, beta, g, bool(inverse)))
-                print(f"SM clock under load: {mhz:.0f} MHz", flush=True)
-            for name, (lib, clocks) in libs.items():
-                dx, u = torch.empty_like(x), torch.empty_like(x)
-
-                def launch():
-                    rc = lib.epic_gdn_backward(
-                        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                        g.data_ptr(), dx.data_ptr(), u.data_ptr(), rows, c,
-                        inverse, torch.cuda.current_stream().cuda_stream)
-                    if rc:
-                        raise RuntimeError(f"launch failed: CUDA error {rc}")
-
-                ms = _ms(launch)
-                launch()
-                torch.cuda.synchronize()
-                same = torch.equal(dx, want[0]) and torch.equal(u, want[1])
-                line = (f"R={rows} {name:12s} {kind} {ms:.4f} ms, dx and u "
-                        f"equal to the library's: {same}")
-                if clocks:
-                    clk = (ctypes.c_longlong * 8)()
-                    lib.epic_gdn_bwd_phases(clk)
-                    line += "; block 0 clocks: " + ", ".join(
-                        f"{n} {v}" for n, v in zip(_BWD_PHASE_NAMES, clk))
-                print(line, flush=True)
+        x32 = torch.as_tensor(rng.normal(0, 1, (rows, c)).astype(np.float32),
+                              device="cuda")
+        g32 = torch.as_tensor(rng.normal(0, 1, (rows, c)).astype(np.float32),
+                              device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            x, g = x32.to(dtype), g32.to(dtype)
+            tag = "f32 " if dtype is torch.float32 else "bf16"
+            bound = _bwd_bound_ms(rows, c, x.element_size())
+            for inverse in (0, 1):
+                kind = "igdn" if inverse else "gdn "
+                want = gdn_backward(x, gamma, beta, g, bool(inverse))
+                plain = gdn_backward_plain(x.float(), gamma, beta, g.float(),
+                                           bool(inverse))
+                ms = _ms(lambda: gdn_backward(x, gamma, beta, g,
+                                              bool(inverse)))
+                print(f"R={rows} {tag} {kind} library      {ms:.4f} ms "
+                      f"(bound {bound:.4f})", flush=True)
+                if rows == BWD_ROWS[0] and dtype is torch.float32:
+                    mhz = sm_clock_mhz_under_load(lambda: gdn_backward(
+                        x, gamma, beta, g, bool(inverse)))
+                    print(f"SM clock under load: {mhz:.0f} MHz, clusters "
+                          f"{backward_clusters(dtype, bool(inverse))}",
+                          flush=True)
+                for name, lib in libs.items():
+                    whole, kernel = _launcher(name, lib, x, gamma, beta, g,
+                                              inverse)
+                    if whole is None:
+                        continue
+                    ms = _ms(whole)
+                    k_ms = _ms(kernel)
+                    got = whole()
+                    torch.cuda.synchronize()
+                    same = all(torch.equal(a, b) for a, b in zip(got, want))
+                    errs = [float((a.float() - b).abs().max()
+                                  / b.abs().max()) for a, b in zip(got,
+                                                                   plain)]
+                    line = (f"R={rows} {tag} {kind} {name:12s} whole "
+                            f"{ms:.4f} ms, kernel {k_ms:.4f} ms, equal to "
+                            f"the library's: {same}, rel err dx / dgamma / "
+                            f"dbeta against gdn_backward_plain "
+                            + " / ".join(f"{e:.1e}" for e in errs))
+                    if name.startswith("extra") and not (
+                            errs[0] <= 1e-5 and max(errs[1:]) <= 1e-4):
+                        raise AssertionError(line)
+                    if hasattr(lib, "epic_gdn_bwd_phases"):
+                        clk = (ctypes.c_longlong * len(_BWD_PHASE_NAMES))()
+                        lib.epic_gdn_bwd_phases(clk)
+                        line += "; block 0 clocks: " + ", ".join(
+                            f"{p} {v}" for p, v in zip(_BWD_PHASE_NAMES,
+                                                       clk))
+                    print(line, flush=True)
+            del x, g
+        del x32, g32
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:

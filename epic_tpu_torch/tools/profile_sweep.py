@@ -43,7 +43,8 @@ from epic_tpu_torch.tools.workload import (bench_batches, bench_loop,
 
 # (family, substrings of the lower-cased kernel name); the first match wins
 FAMILIES = (
-    ("GDN / IGDN backward (csrc/gdn_bwd.cu)", ("gdn_bwd_kernel",)),
+    ("GDN / IGDN backward (csrc/gdn_bwd.cu)", ("gdn_bwd_kernel",
+                                               "gdn_bwd_reduce_kernel")),
     ("GDN / IGDN kernel (csrc/gdn.cu)", ("gdn_kernel",)),
     ("optimizer (multi-tensor)", ("multi_tensor_apply",)),
     ("reductions", ("reduce_kernel",)),

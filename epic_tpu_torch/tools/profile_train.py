@@ -13,6 +13,7 @@ device time per step, device time by kernel family with the GDN forward
 and backward kernels apart). Needs one CUDA device.
 
     python3 -m epic_tpu_torch.tools.profile_train [--steps 5] [--batch 16]
+        [--stages first_train,rems]
 """
 
 from __future__ import annotations
@@ -83,7 +84,10 @@ def main(argv=None) -> None:
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--patch", type=int, default=256)
+    ap.add_argument("--stages", default=",".join(STAGES),
+                    help="the stages to run, in curriculum order")
     args = ap.parse_args(argv)
+    stages = [s for s in STAGES if s in args.stages.split(",")]
     dev = resolve_device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -95,7 +99,7 @@ def main(argv=None) -> None:
     cb = build_crop_bank(imgs, None, args.patch)
     sampler = make_device_sampler(cb, args.patch, args.batch, dev)
     model = get_model("pic", **PIC).init_weights(0).to(dev)
-    for stage in STAGES:
+    for stage in stages:
         model = stage_model(stage, model)
         run, _ = stage_runner(model, stage, sampler, dev)
         for _ in range(args.warmup):

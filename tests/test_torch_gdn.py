@@ -7,7 +7,9 @@ sums of C products in another order), including a ragged 21-row case; the
 float32 and at bf16 (within one bf16 ulp: the two round the same float32
 result, computed in another order). bf16 x goes in and comes out as bf16,
 bitwise the float32 result rounded; the wrapper's checks refuse the types
-and layouts the kernel does not take. The CUDA kernel itself is compared
+and layouts the kernels do not take; the backward's plain route takes bf16
+x and g as their widened values, and the backward kernel's per-cluster
+partials sum to dgamma and dbeta. The CUDA kernel itself is compared
 with the plain version on the card by tests/test_torch_gdn_cuda.py.
 """
 
@@ -22,8 +24,12 @@ from epic_tpu.ops.pallas_gdn import gdn_pallas
 from epic_tpu_torch.convert import from_jax_params
 from epic_tpu_torch.entropy.ops import nn_param_apply
 from epic_tpu_torch.ops.gdn import _BETA_MIN, GDN
-from epic_tpu_torch.ops.gdn_kernel import (_check, gdn, gdn_differentiable,
-                                           gdn_plain)
+from epic_tpu_torch.ops.gdn_kernel import (MAX_CHANNELS, PART_ROWS, _check,
+                                           gdn, gdn_backward,
+                                           gdn_backward_plain,
+                                           gdn_backward_reduce,
+                                           gdn_backward_rows_plain,
+                                           gdn_differentiable, gdn_plain)
 
 RTOL, ATOL = 1e-5, 1e-6
 
@@ -131,20 +137,61 @@ def test_module_bf16_matches_flax_bf16_within_one_ulp(inverse):
 
 
 def test_check_refuses_what_the_kernel_cannot_take():
+    """Both kernels take float32 or bf16 x (the backward's g of x's type),
+    contiguous, 1 <= C <= 192, gamma and beta float32."""
     x, gamma, beta = (torch.from_numpy(a) for a in _data((8, 16), 2))
-    _check("gdn", x, gamma, beta, x_types=(torch.float32, torch.bfloat16))
-    _check("gdn", x.bfloat16(), gamma, beta,
-           x_types=(torch.float32, torch.bfloat16))
+    for xt in (x, x.bfloat16()):
+        _check("gdn", xt, gamma, beta)
+        _check("gdn_backward", xt, gamma, beta, xt.clone())
     for bad in (x.half(), x.double(), x.t().contiguous().t()):
         with pytest.raises(ValueError):
-            _check("gdn", bad, gamma, beta,
-                   x_types=(torch.float32, torch.bfloat16))
-    with pytest.raises(ValueError):  # the backward keeps float32 only
-        _check("gdn_backward", x.bfloat16(), gamma, beta)
+            _check("gdn", bad, gamma, beta)
+    for xt, g in ((x, x.bfloat16()), (x.bfloat16(), x), (x.half(), x.half()),
+                  (x, x.t().contiguous().t())):
+        with pytest.raises(ValueError):  # mixed types, float16, layout
+            _check("gdn_backward", xt, gamma, beta, g)
     c = 193
-    with pytest.raises(ValueError):
-        _check("gdn", torch.zeros(4, c), torch.zeros(c, c), torch.ones(c),
-               x_types=(torch.float32, torch.bfloat16))
+    for name, others in (("gdn", ()), ("gdn_backward", (torch.zeros(4, c),))):
+        with pytest.raises(ValueError):
+            _check(name, torch.zeros(4, c), torch.zeros(c, c), torch.ones(c),
+                   *others)
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["gdn", "igdn"])
+def test_backward_plain_route_takes_bf16_as_the_widened_values(inverse):
+    """On the CPU, gdn_backward of bf16 x and g: bitwise
+    gdn_backward_plain on the widened values, dx rounded once to bf16."""
+    x, gamma, beta = (torch.from_numpy(a) for a in _data((2, 3, 7, 24), 13))
+    g = torch.from_numpy(_data((2, 3, 7, 24), 14)[0])
+    xb, gb = x.bfloat16(), g.bfloat16()
+    dx, dgamma, dbeta = gdn_backward(xb, gamma, beta, gb, inverse)
+    want = gdn_backward_plain(xb.float(), gamma, beta, gb.float(), inverse)
+    assert dx.dtype is torch.bfloat16
+    assert torch.equal(dx, want[0].to(torch.bfloat16))
+    assert torch.equal(dgamma, want[1]) and torch.equal(dbeta, want[2])
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["gdn", "igdn"])
+def test_backward_partials_sum_to_the_weight_gradients(inverse):
+    """The backward kernel's contract with its reduction: per cluster a
+    partial [PART_ROWS, 192] holding sum (x^2)^T u over its rows (dgamma's
+    rows, zero past C) and sum u (row 192); gdn_backward_reduce (on the CPU
+    its plain version) scales the sum of the partials by -/+ 1/2, which is
+    gdn_backward_plain's dgamma and dbeta."""
+    c, parts = 40, 3
+    x, gamma, beta = (torch.from_numpy(a) for a in _data((90, c), 15))
+    g = torch.from_numpy(_data((90, c), 16)[0])
+    _, u = gdn_backward_rows_plain(x, gamma, beta, g, inverse)
+    part = torch.zeros(parts + 1, PART_ROWS, MAX_CHANNELS)
+    for k, rows in enumerate(torch.arange(90).chunk(parts)):
+        part[k, :c, :c] = (x[rows] ** 2).T @ u[rows]
+        part[k, MAX_CHANNELS, :c] = u[rows].sum(0)
+    dgamma, dbeta = gdn_backward_reduce(part.flatten(), parts, c, inverse)
+    _, want_g, want_b = gdn_backward_plain(x, gamma, beta, g, inverse)
+    # norm-wise (u is signed: a sum in another order may cancel elsewhere)
+    for got, want in ((dgamma, want_g), (dbeta, want_b)):
+        assert got.shape == want.shape
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
 
 
 @pytest.mark.parametrize("inverse", [False, True], ids=["gdn", "igdn"])

@@ -12,10 +12,12 @@ launches as a float32 call; x at an address TMA cannot take; bf16 training
 gradients bitwise those of the float32 path. The backward kernel against its plain
 version (dx and u within 1e-5 of their largest magnitude) and ``GDN``'s
 gradients through both kernels against autograd through ``gdn_plain``
-(dgamma / dbeta within 1e-4: sums over every row in another order), at
-small and ragged R, every width, at the edges of its persistent grid, on a
-side stream and from launch to launch bitwise, and a tiny training step
-through the kernels.
+and ``gdn_backward_plain`` (dgamma / dbeta within 1e-4: sums over every
+row in another order), at small and ragged R, every width, at the edges of
+its persistent grid and of its dgamma flushes, x at an unaligned address,
+on a side stream and from launch to launch bitwise, float32 and bf16 (bf16
+bitwise the float32 variant's, dx rounded; no cast kernel around it), and
+a tiny training step through the kernels.
 They skip without a device. This file imports no JAX, so on a machine
 without it run it without the repository's conftest:
 
@@ -28,7 +30,10 @@ import torch
 
 import epic_tpu_torch as et
 from epic_tpu_torch.ops.gdn import GDN
-from epic_tpu_torch.ops.gdn_kernel import (MAX_CHANNELS, gdn, gdn_backward,
+from epic_tpu_torch.ops.gdn_kernel import (MAX_CHANNELS, backward_clusters,
+                                           gdn, gdn_backward,
+                                           gdn_backward_plain,
+                                           gdn_backward_reduce,
                                            gdn_backward_rows,
                                            gdn_backward_rows_plain,
                                            gdn_differentiable, gdn_plain)
@@ -358,87 +363,186 @@ def test_bf16_gradients_bitwise_the_float32_path(inverse):
 
 
 def _bwd_rel(got, want):
+    got, want = got.float(), want.float()
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
-def _check_backward(rows, c, inverse, seed):
+DTYPES = [torch.float32, torch.bfloat16]
+DTYPE_IDS = ["f32", "bf16"]
+
+
+def _check_backward(rows, c, inverse, seed, dtype=torch.float32):
+    """The backward kernel's (dx, u) within 1e-5 of the plain closed form,
+    gdn_backward's dx within 1e-5 and dgamma / dbeta within 1e-4 of
+    autograd through gdn_plain and of gdn_backward_plain (float32: sums over
+    every row in another order), one launch of each kernel per call. bf16:
+    x and g rounded, held so in float32, and the bf16 variant bitwise the
+    float32 one on the widened values (dx rounded once)."""
     x, gamma, beta = _data(rows, c, seed=seed)
     g = torch.randn(x.shape, generator=torch.Generator(device="cuda")
                     .manual_seed(seed), device="cuda")
-    before = gdn_backward.launches["igdn" if inverse else "gdn"]
+    if dtype is torch.bfloat16:
+        xb, gb = x.bfloat16(), g.bfloat16()
+        x, g = xb.float(), gb.float()
+    kind = "igdn" if inverse else "gdn"
+    before = (gdn_backward.launches[kind], gdn_backward_reduce.launches[kind])
     dx, u = gdn_backward_rows(x, gamma, beta, g, inverse)
-    assert gdn_backward.launches["igdn" if inverse else "gdn"] == before + 1
+    assert gdn_backward.launches[kind] == before[0] + 1
     dx_p, u_p = gdn_backward_rows_plain(x, gamma, beta, g, inverse)
     assert _bwd_rel(dx, dx_p) <= 1e-5 and _bwd_rel(u, u_p) <= 1e-5
     xr, gr, br = (t.clone().requires_grad_() for t in (x, gamma, beta))
     want = torch.autograd.grad(gdn_plain(xr, gr, br, inverse), (xr, gr, br),
                                g)
     got = gdn_backward(x, gamma, beta, g, inverse)
+    assert gdn_backward.launches[kind] == before[0] + 2
+    assert gdn_backward_reduce.launches[kind] == before[1] + 1
+    plain = gdn_backward_plain(x, gamma, beta, g, inverse)
     assert _bwd_rel(got[0], want[0]) <= 1e-5
-    assert _bwd_rel(got[1], want[1]) <= 1e-4
-    assert _bwd_rel(got[2], want[2]) <= 1e-4
+    for k in (1, 2):
+        assert _bwd_rel(got[k], want[k]) <= 1e-4
+        assert _bwd_rel(got[k], plain[k]) <= 1e-4
+    if dtype is torch.bfloat16:
+        rows_b = gdn_backward_rows(xb, gamma, beta, gb, inverse)
+        assert rows_b[0].dtype is torch.bfloat16
+        assert torch.equal(rows_b[0], dx.bfloat16())
+        assert torch.equal(rows_b[1], u)
+        got_b = gdn_backward(xb, gamma, beta, gb, inverse)
+        assert torch.equal(got_b[0], got[0].bfloat16())
+        assert torch.equal(got_b[1], got[1]) and torch.equal(got_b[2],
+                                                             got[2])
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("rows", [1, 21, 31, 33, 16_384, 98_309])
 @pytest.mark.parametrize("inverse", [False, True], ids=["gdn", "igdn"])
-def test_backward_kernel_matches_plain_and_autograd(rows, inverse):
+def test_backward_kernel_matches_plain_and_autograd(rows, inverse, dtype):
     _need_cuda()
-    _check_backward(rows, 192, inverse, seed=5)
+    _check_backward(rows, 192, inverse, seed=5, dtype=dtype)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("inverse", [False, True], ids=["gdn", "igdn"])
-def test_backward_kernel_every_width(inverse):
+def test_backward_kernel_every_width(inverse, dtype):
     _need_cuda()
     for c in range(1, MAX_CHANNELS + 1):
-        _check_backward(333, c, inverse, seed=c)
+        _check_backward(333, c, inverse, seed=c, dtype=dtype)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("inverse", [False, True], ids=["gdn", "igdn"])
-def test_backward_kernel_side_stream_bitwise(inverse):
+def test_backward_kernel_side_stream_bitwise(inverse, dtype):
     _need_cuda()
     x, gamma, beta = _data(65_536, 192, seed=6)
     g = torch.randn_like(x)
-    want = gdn_backward_rows(x, gamma, beta, g, inverse)
+    x, g = x.to(dtype), g.to(dtype)
+    want = (gdn_backward_rows(x, gamma, beta, g, inverse)
+            + gdn_backward(x, gamma, beta, g, inverse))
     torch.cuda.synchronize()
     s = torch.cuda.Stream()
     with torch.cuda.stream(s):
-        got = gdn_backward_rows(x, gamma, beta, g, inverse)
+        got = (gdn_backward_rows(x, gamma, beta, g, inverse)
+               + gdn_backward(x, gamma, beta, g, inverse))
     s.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def _ring_rows(edge):
-    """Row counts at the edges of the backward kernel's persistent grid (one
-    block per SM, 32-row tiles): one tile fewer than, as many as and one
-    more than 2 tiles per block, and fewer tiles than blocks. At -1 and +1
-    some blocks walk one tile more than others; a block's last tile skips
-    the next x prefetch."""
-    tiles = 32 * torch.cuda.get_device_properties(0).multi_processor_count
-    return {"k-1": 2 * tiles - 1, "k": 2 * tiles, "k+1": 2 * tiles + 1,
-            "below": tiles - 40}[edge]
+    """Row counts at the edges of the backward kernel's persistent grid
+    (clusters of 4 blocks walking 64-row tiles, as many clusters as fit on
+    the card): one tile fewer than, as many as and one more than 2 tiles
+    per cluster; fewer tiles than clusters; and the edges of the dgamma
+    sums' flush to the cluster's partial every 8 tiles (8 tiles a cluster,
+    and one row more). At -1 and +1 some clusters walk one tile more than
+    others."""
+    ones = torch.ones(64, 8, device="cuda")
+    gdn_backward(ones, torch.eye(8, device="cuda"), ones[0], ones)  # set up
+    clusters = backward_clusters(torch.float32)
+    assert clusters > 0
+    r = 64 * clusters  # rows of one tile per cluster
+    return {"k-1": 2 * r - 64, "k": 2 * r, "k+1": 2 * r + 1,
+            "below": r - 64 * (clusters // 2) - 5, "flush": 8 * r,
+            "flush+1": 8 * r + 1}[edge]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("edge", ["k-1", "k", "k+1", "below"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("edge", ["k-1", "k", "k+1", "below", "flush",
+                                  "flush+1"])
 @pytest.mark.parametrize("inverse", [False, True], ids=["gdn", "igdn"])
-def test_backward_kernel_ring_edges(edge, inverse):
+def test_backward_kernel_ring_edges(edge, inverse, dtype):
     _need_cuda()
-    _check_backward(_ring_rows(edge), 192, inverse, seed=7)
+    _check_backward(_ring_rows(edge), 192, inverse, seed=7, dtype=dtype)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
 @pytest.mark.parametrize("inverse", [False, True], ids=["gdn", "igdn"])
-def test_backward_kernel_two_launches_bitwise(inverse):
+def test_backward_kernel_two_launches_bitwise(inverse, dtype):
+    """Launches of one input give the same bits: the u quarters' exchange
+    between a cluster's blocks and the box ring, freed or filled out of
+    turn, would show as a rare wrong row or column block; dgamma and dbeta
+    are summed in a fixed order."""
     _need_cuda()
     x, gamma, beta = _data(_ring_rows("k+1"), 192, seed=8)
     g = torch.randn_like(x)
-    first = gdn_backward_rows(x, gamma, beta, g, inverse)
-    second = gdn_backward_rows(x, gamma, beta, g, inverse)
-    torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    x, g = x.to(dtype), g.to(dtype)
+    first = (gdn_backward_rows(x, gamma, beta, g, inverse)
+             + gdn_backward(x, gamma, beta, g, inverse))
+    for _ in range(50):
+        again = (gdn_backward_rows(x, gamma, beta, g, inverse)
+                 + gdn_backward(x, gamma, beta, g, inverse))
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+def test_backward_unaligned_x_takes_the_load_path(dtype):
+    """x one element past an aligned address: the backward's own load path
+    for x, the same bits."""
+    _need_cuda()
+    x, gamma, beta = _data(2_000, 192, seed=9)
+    g = torch.randn_like(x).to(dtype)
+    flat = torch.empty(2_000 * 192 + 1, device="cuda", dtype=dtype)
+    shifted = flat[1:].view(2_000, 192)
+    shifted.copy_(x.to(dtype))
+    for inverse in (False, True):
+        got = gdn_backward(shifted, gamma, beta, g, inverse)
+        want = gdn_backward(x.to(dtype), gamma, beta, g, inverse)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True], ids=["gdn", "igdn"])
+def test_backward_bf16_has_no_casts(inverse):
+    """The bf16 backward through the autograd function launches the
+    backward kernel and its reduction once each (their launch counts) and
+    no other kernel: every kernel the profiler records is one of the two
+    (it may drop a record, never add one), as for a float32 backward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _need_cuda()
+    x, gamma, beta = _data(4_096, 192, seed=10)
+    g = _randn(4_096, 192, 11)
+    kind = "igdn" if inverse else "gdn"
+    for xt, gt in ((x, g), (x.bfloat16(), g.bfloat16())):
+        xr, gr, br = (t.clone().requires_grad_() for t in (xt, gamma, beta))
+        y = gdn_differentiable(xr, gr, br, inverse)
+        torch.cuda.synchronize()
+        before = (gdn_backward.launches[kind],
+                  gdn_backward_reduce.launches[kind])
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            grads = torch.autograd.grad(y, (xr, gr, br), gt)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type.name == "CUDA"]
+        assert names and all("gdn_bwd" in n for n in names), names
+        assert (gdn_backward.launches[kind],
+                gdn_backward_reduce.launches[kind]) == (before[0] + 1,
+                                                        before[1] + 1)
+        assert grads[0].dtype is xt.dtype
 
 
 @pytest.mark.cuda
